@@ -1,0 +1,159 @@
+"""Feed-forward stylization (counterpart of the JAX ``infer/stylize.py``; reference
+inference.py:104-125).
+
+Takes NHWC BGR [0,255] images (uint8 or float32) and returns the stylized
+batch, clipped to uint8 by default. The int8 and row-sharded stylize paths
+belong to later slices.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.utils.device import resolve_device
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Device equality where a CUDA device without an index means the current one."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def stylize(
+    model: TransformerNet,
+    images_bgr_255,
+    clip: bool = True,
+    fold_batch: bool = False,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Stylize a batch: NHWC BGR [0,255] -> NHWC BGR on ``device`` (uint8 if ``clip``).
+
+    uint8 input crosses to the device as uint8 and is cast there (a quarter
+    of the f32 bytes). Clipping matches the reference's save-time clip
+    (inference.py:116). ``model`` must already live on ``device``.
+    """
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if not _same_device(model_dev, dev):
+        raise ValueError(f"model is on {model_dev}, not on {dev}")
+    x = torch.as_tensor(images_bgr_255).to(dev).float()
+    with torch.inference_mode():
+        out = model(x, fold_batch=fold_batch)
+        if clip:
+            out = out.clamp(0.0, 255.0).to(torch.uint8)
+    return out
+
+
+def stylize_batched(
+    model: TransformerNet,
+    images: list[np.ndarray],
+    batch_size: int = 8,
+    device: str | torch.device | None = None,
+) -> list[np.ndarray]:
+    """Stylize variable-sized HWC images, batching same-shaped ones together.
+
+    Groups by exact (H, W); no padding, because zero padding would shift the
+    instance-norm statistics everywhere. The output size follows the net's
+    conv arithmetic: equal to the input for H, W divisible by 4, else up to
+    2 px larger. Returns uint8 BGR HWC arrays in input order.
+    """
+    groups: dict[tuple[int, int], list[int]] = {}
+    for i, im in enumerate(images):
+        groups.setdefault((im.shape[0], im.shape[1]), []).append(i)
+    results: list[np.ndarray | None] = [None] * len(images)
+    for idxs in groups.values():
+        for start in range(0, len(idxs), batch_size):
+            chunk = idxs[start : start + batch_size]
+            stacked = np.stack([images[i] for i in chunk])
+            if stacked.dtype != np.uint8:
+                stacked = stacked.astype(np.float32)
+            out = stylize(model, stacked, device=device).cpu().numpy()
+            for j, i in enumerate(chunk):
+                results[i] = out[j]
+    return results  # type: ignore[return-value]
+
+
+def load_transfer_params(path: str, device: str | torch.device | None = None) -> TransformerNet:
+    """Load a reference-format TransformerNet ``.pth`` onto ``device``, in eval mode.
+
+    Mirrors ``StyleTransfer(state_dict_filename=...)`` (cnn.py:41-42). The
+    JAX package's ``.npz`` artifacts are read by the training slice's
+    checkpoint module, which is not ported yet.
+    """
+    dev = resolve_device(device)
+    if not path.endswith(".pth"):
+        raise NotImplementedError(f"{path}: only .pth TransformerNet files load in this port yet")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = TransformerNet()
+    model.load_state_dict(sd)
+    return model.to(dev).eval()
+
+
+def gaussian_blur(image_hwc: np.ndarray, sigma: float = 1.0, ksize: int = 3) -> np.ndarray:
+    """cv2.GaussianBlur((ksize, ksize), sigma) for odd ``ksize`` (reference inference.py:120).
+
+    Separable sampled Gaussian; numpy 'reflect' padding is cv2's default
+    BORDER_REFLECT_101.
+    """
+    if ksize % 2 != 1:
+        raise ValueError(f"ksize must be odd, got {ksize}")
+    r = ksize // 2
+    xs = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-(xs**2) / (2 * sigma * sigma))
+    k /= k.sum()
+    h, w = image_hwc.shape[:2]
+    pad = np.pad(image_hwc.astype(np.float64), ((r, r), (r, r), (0, 0)), mode="reflect")
+    rows = sum(pad[i : i + h] * k[i] for i in range(ksize))
+    out = sum(rows[:, i : i + w] * k[i] for i in range(ksize))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def sharpen(image_hwc: np.ndarray, sharpen_val: float = 50.0) -> np.ndarray:
+    """The reference's cv2.filter2D sharpen kernel (inference.py:123-125)."""
+    kern = np.array([[-1, -1, -1], [-1, sharpen_val, -1], [-1, -1, -1]], np.float64) / (
+        sharpen_val - 8
+    )
+    pad = np.pad(image_hwc.astype(np.float64), ((1, 1), (1, 1), (0, 0)), mode="reflect")
+    out = np.zeros_like(image_hwc, np.float64)
+    for dy in range(3):
+        for dx in range(3):
+            out += pad[dy : dy + image_hwc.shape[0], dx : dx + image_hwc.shape[1]] * kern[dy, dx]
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def save_figure(
+    fig_path: str,
+    content_bgr: np.ndarray,
+    out_bgr: np.ndarray,
+    style_bgr: np.ndarray | None = None,
+) -> None:
+    """2-/3-panel Content/Style/Transformed figure (reference inference.py:126-152),
+    written with matplotlib's non-interactive Agg backend."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    panels = 3 if style_bgr is not None else 2
+    titles = ["Content", "Style", "Transformed"] if panels == 3 else ["Content", "Transformed"]
+    imgs = [content_bgr, style_bgr, out_bgr] if panels == 3 else [content_bgr, out_bgr]
+    fig = plt.figure(figsize=(18, 5))
+    try:
+        for i, (img, title) in enumerate(zip(imgs, titles)):
+            ax = fig.add_subplot(1, panels, i + 1)
+            ax.imshow(np.clip(img, 0, 255).astype(np.uint8)[..., ::-1],
+                      interpolation="nearest", aspect="auto")
+            ax.set_title(title, fontsize=28)
+            ax.axis("off")
+        os.makedirs(os.path.dirname(fig_path) or ".", exist_ok=True)
+        fig.savefig(fig_path)
+    finally:
+        plt.close(fig)

@@ -1,0 +1,115 @@
+"""TransformerNet — the Johnson-style feed-forward stylization network (counterpart of
+the JAX ``models/transformer.py``).
+
+Topology of reference ``StyleTransfer`` (cnn.py:10-49), 1,712,771 parameters:
+
+  encoder:  conv9x9/1 3->32, conv3x3/2 32->64, conv3x3/2 64->128,
+            conv1x1/1 128->128   (each: reflect-pad, conv, instance norm, ReLU)
+  residual: 5 x [conv3x3/1 -> IN -> ReLU -> conv3x3/1 -> IN] + skip
+  decoder:  convT1x1/1 128->128, convT3x3/2 128->64, convT3x3/2 64->32
+            (each + IN + ReLU), then conv9x9/1 32->3 reflect-padded, no norm
+
+Submodule names reproduce the reference state-dict keys
+(``ConvBlock.{0,2,4,6}.conv_layer/norm_layer``, ``ResidualBlock.{i}.conv1/conv2``,
+``DeconvBlock.{0,2,4}.conv_transpose/norm_layer``, ``DeconvBlock.6.conv_layer``),
+so a reference ``.pth`` loads with ``load_state_dict``. The network runs in
+``channels_last``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from artist_style_transfer_tpu_torch.ops.conv import conv2d_reflect, conv_transpose2d
+from artist_style_transfer_tpu_torch.ops.norm import instance_norm
+
+# (kernel, stride, in_ch, out_ch) of the four encoder convs (cnn.py:15-24).
+ENCODER_SPEC = ((9, 1, 3, 32), (3, 2, 32, 64), (3, 2, 64, 128), (1, 1, 128, 128))
+NUM_RESIDUAL = 5
+RES_CHANNELS = 128
+# (kernel, stride, output_padding, in_ch, out_ch) of the three transpose convs (cnn.py:32-38).
+DECODER_SPEC = ((1, 1, 0, 128, 128), (3, 2, 1, 128, 64), (3, 2, 1, 64, 32))
+OUTPUT_CONV = (9, 1, 32, 3)  # final conv, no norm (cnn.py:39)
+
+TRANSFORMER_PARAM_COUNT = 1_712_771
+
+
+class InstanceNorm(nn.Module):
+    """Affine instance norm with ``nn.InstanceNorm2d(C, affine=True)``'s keys."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.weight, self.bias)
+
+
+class ConvLayer(nn.Module):
+    """Reflect-pad conv, then instance norm unless ``norm=False`` (cnn.py:52-79)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int, norm: bool = True):
+        super().__init__()
+        self.conv_layer = nn.Conv2d(cin, cout, k, stride)
+        self.norm_layer = InstanceNorm(cout) if norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv2d_reflect(x, self.conv_layer.weight, self.conv_layer.bias,
+                           stride=self.conv_layer.stride[0])
+        return x if self.norm_layer is None else self.norm_layer(x)
+
+
+class ResidualLayer(nn.Module):
+    def __init__(self, c: int = RES_CHANNELS):
+        super().__init__()
+        self.conv1 = ConvLayer(c, c, 3, 1)
+        self.conv2 = ConvLayer(c, c, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(torch.relu(self.conv1(x))) + x
+
+
+class DeconvLayer(nn.Module):
+    """Transpose conv (zero padding k//2), then instance norm (cnn.py:102-124)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int, output_padding: int):
+        super().__init__()
+        self.conv_transpose = nn.ConvTranspose2d(cin, cout, k, stride, k // 2, output_padding)
+        self.norm_layer = InstanceNorm(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.conv_transpose
+        x = conv_transpose2d(x, ct.weight, ct.bias, stride=ct.stride[0],
+                             padding=ct.padding[0], output_padding=ct.output_padding[0])
+        return self.norm_layer(x)
+
+
+class TransformerNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        enc = []
+        for k, s, cin, cout in ENCODER_SPEC:
+            enc += [ConvLayer(cin, cout, k, s), nn.ReLU()]
+        self.ConvBlock = nn.Sequential(*enc)
+        self.ResidualBlock = nn.Sequential(*[ResidualLayer() for _ in range(NUM_RESIDUAL)])
+        dec = []
+        for k, s, op, cin, cout in DECODER_SPEC:
+            dec += [DeconvLayer(cin, cout, k, s, op), nn.ReLU()]
+        k, s, cin, cout = OUTPUT_CONV
+        dec.append(ConvLayer(cin, cout, k, s, norm=False))
+        self.DeconvBlock = nn.Sequential(*dec)
+        self.to(memory_format=torch.channels_last)
+
+    def forward(self, x_nhwc: torch.Tensor, fold_batch: bool = False) -> torch.Tensor:
+        """NHWC BGR [0,255] -> NHWC BGR, unbounded (reference cnn.py:45-49).
+
+        ``fold_batch`` is accepted for API parity with JAX and changes
+        nothing: there the batch->H fold is a TPU layout rewrite of the same
+        math, and its result is the same.
+        """
+        del fold_batch
+        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        y = self.DeconvBlock(self.ResidualBlock(self.ConvBlock(x)))
+        return y.permute(0, 2, 3, 1)

@@ -1,0 +1,72 @@
+"""Convert the JAX package's parameter pytrees into the port's state dicts.
+
+The inverse of the JAX ``utils/torch_import.py`` importers, for params given
+as numpy-array pytrees (``jax.tree.map(np.asarray, params)``), so parity
+tests can run both packages on the same weights. This module imports neither
+JAX nor the JAX package.
+
+Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
+weights are *spatially flipped* HWIO (the importer flips once so the
+transpose conv runs as a dilated conv); they become torch's unflipped
+(I, O, kH, kW).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from artist_style_transfer_tpu_torch.models.vgg import VGG_CONVS
+
+
+def _t(a) -> torch.Tensor:
+    # A copy, not ascontiguousarray: a flipped size-1 axis keeps its negative
+    # stride under the latter, which torch refuses.
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C", copy=True))
+
+
+def _conv_w(a) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.transpose(np.asarray(a), (3, 2, 0, 1)))
+
+
+def _convT_w(a) -> torch.Tensor:
+    """Spatially flipped HWIO -> torch ConvTranspose2d (I, O, kH, kW)."""
+    return _t(np.transpose(np.asarray(a), (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def transformer_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX TransformerNet pytree -> reference ``StyleTransfer`` state dict."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put_conv(prefix, p, norm=True):
+        sd[f"{prefix}.conv_layer.weight"] = _conv_w(p["w"])
+        sd[f"{prefix}.conv_layer.bias"] = _t(p["b"])
+        if norm:
+            sd[f"{prefix}.norm_layer.weight"] = _t(p["gamma"])
+            sd[f"{prefix}.norm_layer.bias"] = _t(p["beta"])
+
+    def put_deconv(prefix, p):
+        sd[f"{prefix}.conv_transpose.weight"] = _convT_w(p["w"])
+        sd[f"{prefix}.conv_transpose.bias"] = _t(p["b"])
+        sd[f"{prefix}.norm_layer.weight"] = _t(p["gamma"])
+        sd[f"{prefix}.norm_layer.bias"] = _t(p["beta"])
+
+    for i, idx in enumerate((0, 2, 4, 6)):
+        put_conv(f"ConvBlock.{idx}", params["encoder"][i])
+    for i, r in enumerate(params["residual"]):
+        put_conv(f"ResidualBlock.{i}.conv1", r["conv1"])
+        put_conv(f"ResidualBlock.{i}.conv2", r["conv2"])
+    for i, idx in enumerate((0, 2, 4)):
+        put_deconv(f"DeconvBlock.{idx}", params["decoder"][i])
+    put_conv("DeconvBlock.6", params["output"], norm=False)
+    return sd
+
+
+def vgg16_state_dict_from_jax(params: list[dict]) -> dict[str, torch.Tensor]:
+    """JAX VGG16 conv param list -> torchvision ``features.N`` state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for (idx, _, _), p in zip(VGG_CONVS, params, strict=True):
+        sd[f"features.{idx}.weight"] = _conv_w(p["w"])
+        sd[f"features.{idx}.bias"] = _t(p["b"])
+    return sd
