@@ -3,8 +3,8 @@
 The sources have a plain C interface and are compiled with ``nvcc`` into one
 shared library, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The build runs at first use and again whenever the hash of the
-sources and flags changes; the library lands in ``build/`` at the root of
-the checkout, which git ignores. Without ``nvcc`` the build raises: there is
+sources, their headers (``csrc/*.cuh``) and the flags changes; the library
+lands in ``build/`` at the root of the checkout, which git ignores. Without ``nvcc`` the build raises: there is
 no fallback.
 """
 
@@ -40,8 +40,9 @@ def _sources() -> list[pathlib.Path]:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the compiled sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources() + list(SOURCE_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -97,7 +98,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.ast_gram.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            lib.ast_gram.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
             lib.ast_gram.restype = i
             lib.ast_error_string.argtypes = [i]
             lib.ast_error_string.restype = ctypes.c_char_p

@@ -10,10 +10,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 0. header: torch/CUDA versions, the card (``nvidia-smi`` name and power
    limit), and both TF32 flags, which parity mode keeps False;
-1. build: compiles ``csrc/*.cu`` with nvcc (set-up time);
+1. build: compiles ``csrc/*.cu`` with nvcc (set-up time) and counts the
+   tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS;
 2. gram: the Hopper Gram kernel against the plain PyTorch version at the
    VGG tap shapes of Gatys at 256x256 (N=1) and of a 512x512 batch of 4,
-   in f32 and bf16, with its gradient, kernel / plain / cuBLAS / bound times;
+   in f32 and bf16, with its gradient; kernel / plain / cuBLAS times by CUDA
+   events (warm), kernel and cuBLAS device time by the profiler with L2
+   flushed before each call (cold), and the bound;
 3. stylize: the committed golden TransformerNet on the card against the
    golden image (> 35 dB) and against the port's own CPU result (> 45 dB),
    then a seeded 4x512x512 batch through ``stylize_batched``;
@@ -45,12 +48,13 @@ GRAM_SOURCE = "artist_style_transfer_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "artist_style_transfer_tpu/ops/pallas/gram_kernel.py:60"  # gram_matrix_pallas
 
 # Published dense peaks (NVIDIA data sheets) by H100 variant: FP32 outside
-# the tensor cores, bf16 tensor cores, HBM bandwidth. At full power limit.
+# the tensor cores, TF32 and bf16 tensor cores, HBM bandwidth. At full power limit.
 PEAKS = {
-    "H100 SXM": {"fp32": 67e12, "bf16": 989e12, "hbm": 3.35e12},
-    "H100 PCIe": {"fp32": 51e12, "bf16": 756e12, "hbm": 2.0e12},
-    "H100 NVL": {"fp32": 60e12, "bf16": 835e12, "hbm": 3.9e12},
+    "H100 SXM": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "hbm": 3.35e12},
+    "H100 PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12, "hbm": 2.0e12},
+    "H100 NVL": {"fp32": 60e12, "tf32": 418e12, "bf16": 835e12, "hbm": 3.9e12},
 }
+FLUSH_BYTES = 256 << 20  # written between timed calls: more than the H100's 50 MB L2
 
 TAPS = (("relu1_2", 1, 64), ("relu2_2", 2, 128), ("relu3_3", 4, 256), ("relu4_3", 8, 512))
 GATYS_SIZE = 256
@@ -78,6 +82,54 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
+    """Device time per call of ``fn`` from ``torch.profiler``, with L2 flushed before each call.
+
+    Counts the kernels whose name holds ``kernel`` (``""``: every kernel of
+    ``fn``), which must run the same number of times in every call; the
+    flush's own fill kernel never counts. The profiler now and then drops
+    device events (seen on the H100 machine: 11 of 20 launches recorded);
+    such a window is taken again, up to ``attempts`` times.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and "FillFunctor" not in ev.key and kernel in ev.key]
+        launches = sum(ev.count for ev in rows)
+        if launches > 0 and launches % iters == 0:
+            return sum(ev.self_device_time_total for ev in rows) / 1e3 / iters
+    raise SystemExit(f"chip_smoke: FAILED: device_ms: {launches} launches of '{kernel}' "
+                     f"recorded over {iters} calls, {attempts} times")
+
+
+def gram_bound(n: int, hw: int, c: int, dtype: torch.dtype, peaks: dict) -> tuple[float, float]:
+    """(operations ms, bytes ms): the least time for a Gram on these inputs.
+
+    Operations count the C(C+1)/2 distinct entries, HW*C*(C+1) FLOPs an
+    image. f32 needs an f32-accurate product: FP32 on the CUDA cores or
+    3xTF32 on the tensor cores, whichever is faster; bf16 runs at the bf16
+    tensor-core rate. Bytes: F read once, G written once.
+    """
+    flops = float(n) * hw * c * (c + 1)
+    if dtype == torch.float32:
+        t_ops = min(flops / peaks["fp32"], 3 * flops / peaks["tf32"])
+    else:
+        t_ops = flops / peaks["bf16"]
+    nbytes = n * hw * c * (4 if dtype == torch.float32 else 2) + n * c * c * 4
+    return t_ops * 1e3, nbytes / peaks["hbm"] * 1e3
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -121,8 +173,17 @@ def phase_build() -> None:
     build.library()
     info = build.last_build
     ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "smem" in ln]
+    lib_path = build.BUILD_DIR / build.LIB_NAME
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    mma = {kind: sum(1 for ln in sass if "MMA" in ln and f".{kind.upper()}" in ln)
+           for kind in ("tf32", "bf16")}
+    ffma = sum(1 for ln in sass if " FFMA " in ln)
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"],
-         nvcc_seconds=info["seconds"], library=str(build.BUILD_DIR / build.LIB_NAME), ptxas=ptxas)
+         nvcc_seconds=info["seconds"], library=str(lib_path), ptxas=ptxas,
+         sass_mma=mma, sass_ffma=ffma)
+    require(all(v > 0 for v in mma.values()), f"no tensor-core MMA in the SASS of a dtype: {mma}")
 
 
 def phase_gram(peaks: dict) -> dict:
@@ -130,8 +191,9 @@ def phase_gram(peaks: dict) -> dict:
     from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst_abs = worst_rel = 0.0
-    main = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+    main = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0}
     for size, n in ((GATYS_SIZE, 1), (512, 4)):
         for tap, down, c in TAPS:
@@ -156,6 +218,8 @@ def phase_gram(peaks: dict) -> dict:
 
                 grad_rel = None
                 if dtype == torch.float32:
+                    require(kernel_vs_f64 <= 5e-6,
+                            f"gram {tap} {size}^2 n{n}: kernel vs f64 {kernel_vs_f64}")
                     r = torch.randn((n, c, c), generator=gen, device="cuda")
                     grads = []
                     for use_kernel in (True, False):
@@ -168,28 +232,34 @@ def phase_gram(peaks: dict) -> dict:
 
                 scale = 1.0 / float(c * hw)
                 f3 = f.reshape(n, hw, c)
-                kernel_ms = time_ms(lambda: gram_kernel.gram_matrix_cuda(f))
+                run_kernel = lambda: gram_kernel.gram_matrix_cuda(f)  # noqa: E731
+                run_library = lambda: torch.bmm(f3.transpose(1, 2), f3) * scale  # noqa: E731
+                kernel_ms = time_ms(run_kernel)
                 plain_ms = time_ms(lambda: gram_ops.gram_matrix_plain(f))
-                library_ms = time_ms(lambda: torch.bmm(f3.transpose(1, 2), f3) * scale)
-                flops = 2.0 * n * hw * c * c
-                nbytes = n * hw * c * f.element_size() + n * c * c * 4
-                # The kernel computes in f32 FMA; the least time for bf16 inputs
-                # is the bf16 tensor-core rate with f32 accumulation.
-                peak = peaks["fp32"] if dtype == torch.float32 else peaks["bf16"]
-                t_ops, t_bytes = flops / peak * 1e3, nbytes / peaks["hbm"] * 1e3
+                library_ms = time_ms(run_library)
+                kernel_dev = device_ms(run_kernel, "gram_tile_kernel")
+                library_dev = device_ms(run_library, "")
+                t_ops, t_bytes = gram_bound(n, hw, c, dtype, peaks)
                 bound_ms = max(t_ops, t_bytes)
+                require(kernel_dev >= bound_ms / 1.05,
+                        f"gram {tap} {size}^2 n{n} {dtype}: device {kernel_dev} ms under the "
+                        f"bound {bound_ms} ms: the bound is miscounted")
+                plan = gram_kernel.gram_plan(n, hw, c, sms)
+                flops = float(n) * hw * c * (c + 1)
                 emit("gram", tap=tap, size=size, n=n, hw=hw, c=c, dtype=str(dtype)[6:],
-                     splits=gram_kernel.split_plan(n, hw, c, torch.cuda.get_device_properties(0)
-                                                   .multi_processor_count)[0],
+                     tile=plan.tile, tiles=len(plan.pairs), splits=plan.splits,
+                     rows_per_split=plan.rows,
                      max_abs_err=abs_err, max_rel_err=rel_err, grad_rel_err=grad_rel,
                      kernel_vs_f64_rel=kernel_vs_f64, plain_vs_f64_rel=plain_vs_f64,
-                     kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     kernel_ms=kernel_ms, device_ms=kernel_dev, plain_ms=plain_ms,
+                     library_ms=library_ms, library_device_ms=library_dev,
                      bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
-                     gflop=flops / 1e9, kernel_tflops=flops / kernel_ms / 1e9)
+                     bound_share=bound_ms / kernel_dev, gflop=flops / 1e9,
+                     kernel_tflops=flops / kernel_dev / 1e9)
                 if size == GATYS_SIZE and n == 1 and dtype == torch.float32:
-                    for k, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
-                                 ("library_ms", library_ms), ("bound_ms", bound_ms),
-                                 ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
+                    for k, v in (("ms", kernel_ms), ("device_ms", kernel_dev),
+                                 ("plain_ms", plain_ms), ("library_ms", library_ms),
+                                 ("bound_ms", bound_ms), ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
                         main[k] += v
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main}
 
@@ -340,12 +410,13 @@ def main(argv=None) -> int:
         "max_abs_err": gram["max_abs_err"],
         "max_rel_err": gram["max_rel_err"],
         "ms": gram["ms"],
+        "device_ms": gram["device_ms"],
         "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"],
         "bound_by": "operations" if gram["ops_ms"] >= gram["bytes_ms"] else "bytes",
         "library_ms": gram["library_ms"],
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
-                     "N=1, f32)",
+                     "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler",
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port, and its PNG reader against OpenCV.
 
-The port and ``chip_smoke.py`` must import neither JAX nor the JAX package.
+The port, ``chip_smoke.py`` and ``bench_gram.py`` must import neither JAX nor
+the JAX package.
 The check is a static ``ast`` scan of the source, so a ``sitecustomize``
 that pre-imports JAX cannot hide an import. ``artist_style_transfer_tpu_torch``
 starts with the JAX package's name, so a module counts only when it *is*
@@ -48,7 +49,7 @@ def imported_modules(path: pathlib.Path) -> list[str]:
 
 
 def port_files() -> list[pathlib.Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_gram.py"]
 
 
 @pytest.mark.parametrize(
@@ -85,7 +86,7 @@ def test_scanner_sees_every_import_form(tmp_path):
 
 def test_port_and_chip_smoke_import_no_jax():
     files = port_files()
-    assert len(files) > 20 and ROOT / "chip_smoke.py" in files
+    assert len(files) > 20 and ROOT / "chip_smoke.py" in files and ROOT / "bench_gram.py" in files
     offenders = {
         str(p.relative_to(ROOT)): bad
         for p in files

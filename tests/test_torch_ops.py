@@ -171,16 +171,100 @@ def test_gram_kernel_wrapper_refuses_cpu_tensors():
     assert tgk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n,hw,c", [
+GRAM_PLAN_SHAPES = [
     (1, 65536, 64), (1, 16384, 128), (1, 4096, 256), (1, 1024, 512),
     (4, 262144, 64), (4, 4096, 512), (2, 10, 3), (1, 43 * 64, 512),
-])
+]
+
+
+@pytest.mark.parametrize("n,hw,c", GRAM_PLAN_SHAPES)
 def test_gram_split_plan_covers_hw(n, hw, c):
-    splits, rows = tgk.split_plan(n, hw, c, sm_count=132)
-    assert rows % tgk.CHUNK == 0 and rows >= tgk.MIN_ROWS_PER_SPLIT
-    assert (splits - 1) * rows < hw <= splits * rows  # every row once, no empty split
-    tiles = (-(-c // tgk.TILE)) ** 2
-    assert n * tiles * splits <= tgk.BLOCKS_PER_SM * 132 + n * tiles  # about 4 blocks per SM
+    plan = tgk.gram_plan(n, hw, c, sm_count=132)
+    assert plan.rows % tgk.ROWS == 0 and plan.rows >= tgk.MIN_ROWS_PER_SPLIT
+    assert (plan.splits - 1) * plan.rows < hw <= plan.splits * plan.rows  # no empty split
+    assert plan.splits <= tgk.MAX_SPLITS
+    assert plan.tile == tgk.tile_edge(n, hw, c, 132) and plan.tile in (64, 128)
+    assert plan.tile == 64 or n * len(plan.pairs) * hw >= tgk.WIDE_ROWS * 132
+    cost = lambda s: -(-n * len(plan.pairs) * s // (tgk.BLOCKS_PER_SM[plan.tile] * 132)) * (
+        -(-hw // s) + tgk.SPLIT_COST_ROWS)
+    assert cost(plan.splits) <= 1.25 * min(cost(s) for s in range(1, tgk.MAX_SPLITS + 1))
+
+
+def _device_tile_of(p: int, t: int) -> tuple[int, int]:
+    """How ``gram_tile_kernel`` decodes its grid y index (csrc/gram.cu)."""
+    ti, rem = 0, p
+    while rem >= t - ti:
+        rem -= t - ti
+        ti += 1
+    return ti, ti + rem
+
+
+@pytest.mark.parametrize("n,hw,c", GRAM_PLAN_SHAPES + [(3, 63, 130), (1, 256, 200), (2, 9, 64)])
+def test_gram_plan_covers_every_entry_once(n, hw, c):
+    """Upper-triangle tiles only; each G entry directly or by its mirror, exactly
+    once; each HW row in exactly one non-empty split; the launch order is the
+    kernel's decode order."""
+    plan = tgk.gram_plan(n, hw, c, sm_count=132)
+    e = plan.tile
+    t = -(-c // e)
+    assert len(plan.pairs) == t * (t + 1) // 2
+    assert [_device_tile_of(p, t) for p in range(len(plan.pairs))] == list(plan.pairs)
+    covered = np.zeros((t * e, t * e), np.int64)
+    for ti, tj in plan.pairs:
+        assert ti <= tj
+        rows, cols = slice(ti * e, (ti + 1) * e), slice(tj * e, (tj + 1) * e)
+        covered[rows, cols] += 1
+        if ti != tj:
+            covered[cols, rows] += 1  # the mirror store
+    assert (covered[:c, :c] == 1).all()
+    hits = np.zeros(hw, np.int64)
+    for s in range(plan.splits):
+        lo, hi = s * plan.rows, min(hw, (s + 1) * plan.rows)
+        assert lo < hi
+        hits[lo:hi] += 1
+    assert (hits == 1).all()
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on the CPU: round the 13 low mantissa bits to nearest, ties away."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _gram_tf32_passes(f: np.ndarray, passes: int) -> np.ndarray:
+    """F^T F from TF32 operands, as the kernel forms it: big = tf32(a),
+    small = tf32(a - big); 3 passes add small*big + big*small to big*big."""
+    big = _tf32(f)
+    small = _tf32(f - big)
+    b, s = big.astype(np.float64), small.astype(np.float64)
+    g = b.T @ b
+    return g + b.T @ s + s.T @ b if passes == 3 else g
+
+
+def _gram_inputs(kind: str, hw: int, c: int) -> np.ndarray:
+    rng = np.random.default_rng(5)
+    if kind == "uniform":
+        return rng.random((hw, c), dtype=np.float32)
+    # A flat feature map (a sky, a wall): one level per channel and little
+    # else, so every row's TF32 rounding error has the same sign.
+    level = rng.uniform(0.5, 2.0, c)
+    return (level + 1e-5 * rng.standard_normal((hw, c))).astype(np.float32)
+
+
+@pytest.mark.parametrize("hw,c", [(4096, 256), (65536, 64)])
+@pytest.mark.parametrize("kind", ["uniform", "flat"])
+def test_gram_3xtf32_is_f32_accurate(hw, c, kind):
+    f = _gram_inputs(kind, hw, c)
+    g64 = f.astype(np.float64).T @ f.astype(np.float64)
+    assert np.abs(_gram_tf32_passes(f, 3) - g64).max() / np.abs(g64).max() <= 2e-6
+
+
+@pytest.mark.parametrize("hw,c", [(4096, 256), (65536, 64)])
+def test_gram_single_tf32_pass_is_not_f32_accurate(hw, c):
+    """Why the kernel runs three passes: one TF32 pass is 1e-4 off f64 on a flat map."""
+    f = _gram_inputs("flat", hw, c)
+    g64 = f.astype(np.float64).T @ f.astype(np.float64)
+    assert np.abs(_gram_tf32_passes(f, 1) - g64).max() / np.abs(g64).max() > 1e-4
 
 
 def test_build_needs_nvcc():
