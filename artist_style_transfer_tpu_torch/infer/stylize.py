@@ -82,16 +82,19 @@ def stylize_batched(
 
 
 def load_transfer_params(path: str, device: str | torch.device | None = None) -> TransformerNet:
-    """Load a reference-format TransformerNet ``.pth`` onto ``device``, in eval mode.
+    """Load a TransformerNet from ``.pth`` (reference format) or ``.npz`` (the
+    training artifact of either package) onto ``device``, in eval mode.
 
     Mirrors ``StyleTransfer(state_dict_filename=...)`` (cnn.py:41-42). The
-    JAX package's ``.npz`` artifacts are read by the training slice's
-    checkpoint module, which is not ported yet.
+    ``.ckpt`` checkpoints carry optimizer state and are for resuming training.
     """
     dev = resolve_device(device)
-    if not path.endswith(".pth"):
-        raise NotImplementedError(f"{path}: only .pth TransformerNet files load in this port yet")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if path.endswith(".npz"):
+        from artist_style_transfer_tpu_torch.train.checkpoint import load_params_npz
+
+        sd = load_params_npz(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
     model = TransformerNet()
     model.load_state_dict(sd)
     return model.to(dev).eval()

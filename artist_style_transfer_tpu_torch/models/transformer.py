@@ -12,8 +12,13 @@ Topology of reference ``StyleTransfer`` (cnn.py:10-49), 1,712,771 parameters:
 Submodule names reproduce the reference state-dict keys
 (``ConvBlock.{0,2,4,6}.conv_layer/norm_layer``, ``ResidualBlock.{i}.conv1/conv2``,
 ``DeconvBlock.{0,2,4}.conv_transpose/norm_layer``, ``DeconvBlock.6.conv_layer``),
-so a reference ``.pth`` loads with ``load_state_dict``. The network runs in
-``channels_last``.
+so a reference ``.pth`` loads with ``load_state_dict``. The ``nn.ReLU``
+modules keep the reference's indices; the forward folds each ReLU into the
+norm before it through ``instance_norm_act`` in every precision mode. The JAX
+``_in_maybe_act`` composes IN and ReLU in parity mode to keep its exact ops;
+here both forms are one autograd function, whose recomputed mask equals
+relu's own in f32, so the fold costs nothing in parity. The network runs in
+``channels_last`` and is differentiable.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from artist_style_transfer_tpu_torch.ops.conv import conv2d_reflect, conv_transpose2d
-from artist_style_transfer_tpu_torch.ops.norm import instance_norm
+from artist_style_transfer_tpu_torch.ops.norm import instance_norm_act
 
 # (kernel, stride, in_ch, out_ch) of the four encoder convs (cnn.py:15-24).
 ENCODER_SPEC = ((9, 1, 3, 32), (3, 2, 32, 64), (3, 2, 64, 128), (1, 1, 128, 128))
@@ -43,8 +48,8 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        return instance_norm_act(x, self.weight, self.bias, relu)
 
 
 class ConvLayer(nn.Module):
@@ -55,10 +60,10 @@ class ConvLayer(nn.Module):
         self.conv_layer = nn.Conv2d(cin, cout, k, stride)
         self.norm_layer = InstanceNorm(cout) if norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         x = conv2d_reflect(x, self.conv_layer.weight, self.conv_layer.bias,
                            stride=self.conv_layer.stride[0])
-        return x if self.norm_layer is None else self.norm_layer(x)
+        return x if self.norm_layer is None else self.norm_layer(x, relu)
 
 
 class ResidualLayer(nn.Module):
@@ -68,7 +73,7 @@ class ResidualLayer(nn.Module):
         self.conv2 = ConvLayer(c, c, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(torch.relu(self.conv1(x))) + x
+        return self.conv2(self.conv1(x, relu=True)) + x
 
 
 class DeconvLayer(nn.Module):
@@ -79,11 +84,11 @@ class DeconvLayer(nn.Module):
         self.conv_transpose = nn.ConvTranspose2d(cin, cout, k, stride, k // 2, output_padding)
         self.norm_layer = InstanceNorm(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         ct = self.conv_transpose
         x = conv_transpose2d(x, ct.weight, ct.bias, stride=ct.stride[0],
                              padding=ct.padding[0], output_padding=ct.output_padding[0])
-        return self.norm_layer(x)
+        return self.norm_layer(x, relu)
 
 
 class TransformerNet(nn.Module):
@@ -111,5 +116,32 @@ class TransformerNet(nn.Module):
         """
         del fold_batch
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        y = self.DeconvBlock(self.ResidualBlock(self.ConvBlock(x)))
-        return y.permute(0, 2, 3, 1)
+        for i in range(0, len(ENCODER_SPEC) * 2, 2):
+            x = self.ConvBlock[i](x, relu=True)
+        for block in self.ResidualBlock:
+            x = block(x)
+        for i in range(0, len(DECODER_SPEC) * 2, 2):
+            x = self.DeconvBlock[i](x, relu=True)
+        return self.DeconvBlock[-1](x).permute(0, 2, 3, 1)
+
+
+def init_transformer(
+    generator: torch.Generator, device: str | torch.device = "cpu"
+) -> TransformerNet:
+    """A TransformerNet with torch's default init, drawn from ``generator``.
+
+    As the JAX ``init_transformer_params``: U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    for every conv weight and bias, fan_in = cin*k*k for a conv and cout*k*k
+    for a transpose conv (torch reads fan_in from weight dim 1); instance
+    norms start at gamma 1, beta 0. Draws run in module order, weight then
+    bias, on the CPU, so a seed gives the same net on every device.
+    """
+    model = TransformerNet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                bound = 1.0 / (w.shape[1] * w.shape[2] * w.shape[3]) ** 0.5
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+    return model.to(device)

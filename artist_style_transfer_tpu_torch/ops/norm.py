@@ -1,18 +1,90 @@
-"""Instance norm forward (counterpart of the JAX ``ops/norm.py:17-64``).
+"""Instance norm with a hand-derived backward (counterpart of the JAX ``ops/norm.py:17-145``).
 
-The hand-derived backward of the JAX module (``norm.py:67-145``) belongs
-to the training slice; the stylize path runs the forward under
-``no_grad``.
+Both functions are one ``torch.autograd.Function``: the forward keeps ``x``
+(already resident) and the (N, C, 1, 1) f32 statistics (f64 for f64 input), and the backward
+recomputes x-hat from them instead of letting autograd save the f32
+``x - mean`` of every layer. ``instance_norm_act`` folds the following ReLU
+in and recomputes its mask in the backward from x-hat*gamma + beta > 0, so
+no mask is stored either. The JAX package tried a Pallas IN backward on the
+TPU, measured it slower and removed it (``norm.py:109-113``): this is the
+XLA form, in plain PyTorch, with no kernel.
+
+Tensors are NCHW (``channels_last`` memory in the port); dx comes back in
+the memory format of x, so cuDNN's dgrad after it needs no layout copy.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from artist_style_transfer_tpu_torch.ops.precision import get_precision
 
 # torch nn.InstanceNorm2d default epsilon (parity-critical).
 INSTANCE_NORM_EPS = 1e-5
+
+
+def _channels(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for f32 and narrower inputs (as JAX); f64 stays f64, for gradcheck."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _in_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
+    """Forward of JAX ``_in_forward``: (y, mean, inv) with f32 stats over (H, W).
+
+    The variance follows the precision policy as in JAX: the two-pass
+    E[(x-mean)^2] under ``"highest"``, the one-pass E[x^2] - mean^2 otherwise.
+    """
+    x32 = x.to(_stats_dtype(x))
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    if get_precision() == "highest":
+        var = (x32 - mean).square().mean(dim=(2, 3), keepdim=True)
+    else:
+        m2 = x32.square().mean(dim=(2, 3), keepdim=True)
+        var = (m2 - mean.square()).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    y = ((x32 - mean) * inv).to(x.dtype) * _channels(scale) + _channels(bias)
+    return y, mean, inv
+
+
+class _InstanceNormFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, relu: bool, eps: float):
+        y, mean, inv = _in_forward(x, scale, bias, eps)
+        ctx.save_for_backward(x, mean, inv, scale, bias)
+        ctx.relu = relu
+        return torch.relu(y) if relu else y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        """dx = inv * (g - mean(g) - xhat * mean(g * xhat)), g = dy * gamma;
+        dgamma = sum(dy * xhat), dbeta = sum(dy); every reduction in f32
+        (JAX ``_in_bwd`` and ``_in_act_bwd_xla``)."""
+        x, mean, inv, scale, bias = ctx.saved_tensors
+        acc = mean.dtype
+        xhat = (x.to(acc) - mean) * inv
+        dya = dy.to(acc)
+        if ctx.relu:
+            pre = xhat * _channels(scale.to(acc)) + _channels(bias.to(acc))
+            dya = torch.where(pre > 0, dya, 0.0)
+        dgamma = (dya * xhat).sum(dim=(0, 2, 3)).to(scale.dtype)
+        dbeta = dya.sum(dim=(0, 2, 3)).to(bias.dtype)
+        g = dya * _channels(scale.to(acc))
+        m1 = g.mean(dim=(2, 3), keepdim=True)
+        m2 = (g * xhat).mean(dim=(2, 3), keepdim=True)
+        dx = (inv * (g - m1 - xhat * m2)).to(x.dtype)
+        return dx.contiguous(memory_format=_memory_format(x)), dgamma, dbeta, None, None
 
 
 def instance_norm(
@@ -23,17 +95,20 @@ def instance_norm(
 ) -> torch.Tensor:
     """Affine instance norm over an NCHW tensor, stats over (H, W) in f32.
 
-    Biased variance, as ``nn.InstanceNorm2d(C, affine=True)``. The variance
-    follows the precision policy as in JAX: the two-pass E[(x-mean)^2]
-    under ``"highest"``, the one-pass E[x^2] - mean^2 otherwise.
+    Biased variance, as ``nn.InstanceNorm2d(C, affine=True)``; differentiable
+    through the hand-derived backward.
     """
-    x32 = x.float()
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    if get_precision() == "highest":
-        var = (x32 - mean).square().mean(dim=(2, 3), keepdim=True)
-    else:
-        m2 = x32.square().mean(dim=(2, 3), keepdim=True)
-        var = (m2 - mean.square()).clamp_min(0.0)
-    inv = torch.rsqrt(var + eps)
-    y = ((x32 - mean) * inv).to(x.dtype)
-    return y * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
+    return _InstanceNormFunction.apply(x, scale, bias, False, eps)
+
+
+def instance_norm_act(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    relu: bool = True,
+    eps: float = INSTANCE_NORM_EPS,
+) -> torch.Tensor:
+    """``relu(instance_norm(x, scale, bias))`` (or plain IN with ``relu=False``)
+    as one function, whose backward recomputes the ReLU mask; the
+    TransformerNet runs every norm through it."""
+    return _InstanceNormFunction.apply(x, scale, bias, relu, eps)

@@ -4,7 +4,12 @@
   cuBLAS (``torch.backends.cuda.matmul.allow_tf32``) and cuDNN
   (``torch.backends.cudnn.allow_tf32``). cuDNN's own default is True, which
   silently runs every f32 convolution in TF32 (about three decimal digits).
-- ``"default"`` / ``"high"``: TF32 on in both — the throughput mode.
+  It also forbids cuBLAS's reduced-precision (bf16) split-K reductions
+  (``allow_bf16_reduced_precision_reduction``), so a bf16 matmul, such as
+  the Gram backward under ``compute_dtype="bfloat16"``, sums in f32 like
+  JAX's ``preferred_element_type=float32``.
+- ``"default"`` / ``"high"``: TF32 on in both, bf16 reduced-precision
+  reductions allowed (torch's default) — the throughput mode.
 
 The policy is applied to torch's flags when this module is imported, so the
 default is real from the first call, and again on every change.
@@ -21,9 +26,10 @@ _CHOICES = ("highest", "default", "high")
 
 
 def _apply(p: str) -> None:
-    tf32 = p != "highest"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    fast = p != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = fast
+    torch.backends.cudnn.allow_tf32 = fast
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = fast
 
 
 def get_precision() -> str:

@@ -1,1 +1,5 @@
-"""Pixel optimization (Gatys); training comes in a later slice."""
+"""Training: ``train()`` for the Gram modes, its loop, targets and checkpoints; Gatys."""
+
+from artist_style_transfer_tpu_torch.train.api import train, train_from_config
+
+__all__ = ["train", "train_from_config"]

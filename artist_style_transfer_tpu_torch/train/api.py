@@ -1,0 +1,332 @@
+"""``train()`` — the public training entry point (counterpart of the JAX ``train/api.py``).
+
+The signature mirrors the reference ``train()`` kwargs (train_cnn.py:144-146):
+style_method, artist, num_epochs, batch_size, content_data_size, seed,
+num_steps, content_weight, style_weight, lr, save_every; then the JAX
+package's keyword-only extensions, and ``device``.
+
+Flow: seed -> init TransformerNet -> VGG16 -> content corpus to the device
+-> style targets (through the Hopper Gram kernel on CUDA) -> content relu2_2
+once -> one eager epoch at a time -> checkpoints, ``.npz`` and ``.pth``.
+
+Data comes through the in-memory hooks (``content_images``, ``paintings``,
+``avg_image``): the JPEG/pickle data pipeline, and with it the training CLI,
+come with a later slice, and so do the other options the JAX ``train()``
+takes; each raises ``NotImplementedError`` naming its slice.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import random as _random
+import time
+
+import numpy as np
+import torch
+
+from artist_style_transfer_tpu_torch.models.transformer import init_transformer
+from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, load_vgg16
+from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
+from artist_style_transfer_tpu_torch.train.loop import (
+    epoch_permutation,
+    make_optimizer,
+    make_step_fns,
+    precompute_content_relu2_2,
+)
+from artist_style_transfer_tpu_torch.train.styles import MODES, build_style_targets
+from artist_style_transfer_tpu_torch.utils.device import resolve_device
+from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
+
+_DATA_SLICE = "the port's data-pipeline slice (ROADMAP Queue 1 item 7)"
+_INT8_SLICE = "the port's int8 slice (ROADMAP Queue 1 item 10)"
+_OPTIONS_SLICE = "a later slice of the port (ROADMAP Queue 1 item 6)"
+_CLASSIFIER_SLICE = "the port's classifier slice (ROADMAP Queue 1 item 8)"
+
+# The file loaders' and the classifier mode's arguments, at their defaults. The
+# in-memory hooks replace the loaders, so any other value would be ignored:
+# it is refused instead.
+_LOADER_DEFAULTS = dict(train_size=224, content_dir="images/content/",
+                        archive_dir="images/archive/", cache_dir="dicts/")
+_CLASSIFIER_DEFAULTS = dict(classifier_path="models/best-2.pth", reference_typo_stats=False)
+
+
+def _refuse_unported(style_method, *, mesh, content_stream, qat, quantize_loss, quantize_gram,
+                     fold_batch, remat, preview_every, profile_dir, content_images, paintings,
+                     avg_image, loader_args, classifier_args) -> None:
+    checks = (
+        (style_method == "classifier", f"style_method='classifier' comes with {_CLASSIFIER_SLICE}"),
+        (mesh is not None, "mesh (data-parallel training) comes with the port's parallel slice "
+                           "(ROADMAP Queue 1 item 12)"),
+        (content_stream is not None, f"content_stream comes with {_DATA_SLICE}"),
+        (bool(qat), f"qat comes with {_INT8_SLICE}"),
+        (bool(quantize_loss), f"quantize_loss comes with {_INT8_SLICE}"),
+        (quantize_gram is True, f"quantize_gram=True (the int8 Gram) comes with {_INT8_SLICE}"),
+        (fold_batch not in ("auto", False), f"fold_batch={fold_batch!r} comes with {_OPTIONS_SLICE}; "
+                                            "training runs the direct path"),
+        (bool(remat), f"remat comes with {_OPTIONS_SLICE}"),
+        (bool(preview_every), f"preview_every comes with {_OPTIONS_SLICE}"),
+        (profile_dir is not None, f"profile_dir comes with {_OPTIONS_SLICE}"),
+        (content_images is None, f"pass content_images: loading the content corpus from "
+                                 f"content_dir comes with {_DATA_SLICE}"),
+        (paintings is None and style_method in ("random", "cycle", "smartaverage"),
+         f"pass paintings: loading the painting corpus comes with {_DATA_SLICE}"),
+        (avg_image is None and style_method == "average",
+         f"pass avg_image: loading the artist's mean image comes with {_DATA_SLICE}"),
+        *((loader_args[k] != v, f"{k}={loader_args[k]!r} serves the file loaders, which come "
+                                f"with {_DATA_SLICE}") for k, v in _LOADER_DEFAULTS.items()),
+        *((classifier_args[k] != v, f"{k}={classifier_args[k]!r} serves the classifier mode, "
+                                    f"which comes with {_CLASSIFIER_SLICE}")
+          for k, v in _CLASSIFIER_DEFAULTS.items()),
+    )
+    for refused, why in checks:
+        if refused:
+            raise NotImplementedError(why)
+
+
+def _resolve_vgg(vgg, vgg_path: str, dev: torch.device) -> VGG16Features:
+    """A ``VGG16Features`` on ``dev`` from the hook (a module or its state dict) or the file."""
+    if vgg is None:
+        return load_vgg16(vgg_path, dev)
+    if isinstance(vgg, dict):
+        model = VGG16Features()
+        model.load_state_dict(vgg)
+        return model.to(dev)
+    if next(vgg.parameters()).device != dev:
+        vgg = copy.deepcopy(vgg).to(dev)  # the caller's module stays where it is
+    return vgg
+
+
+def train(
+    style_method: str = "random",
+    artist: str = "Albrecht_Dürer",
+    num_epochs: int = 200,
+    batch_size: int = 4,
+    content_data_size: int = 256,
+    seed: int = 2,
+    num_steps: int = 2,
+    content_weight: float = 17.0,
+    style_weight: float = 25.0,
+    lr: float = 0.0024,
+    save_every: int = 10,
+    *,
+    train_size: int = 224,
+    weight_decay: float = 1e-4,
+    model_dir: str | None = "models",
+    vgg_path: str = "models/vgg16-00b39a1b.pth",
+    classifier_path: str = "models/best-2.pth",
+    content_dir: str = "images/content/",
+    archive_dir: str = "images/archive/",
+    cache_dir: str = "dicts/",
+    mesh=None,
+    resume: bool = False,
+    max_epochs_this_run: int | None = None,
+    preview_every: int = 0,
+    export_pth: bool = True,
+    wordy: bool = True,
+    content_stream=None,
+    # In-memory data hooks; the file loaders come with the data-pipeline slice.
+    content_images: np.ndarray | None = None,  # (N, H, W, 3) BGR [0,255]
+    paintings: np.ndarray | None = None,  # (P, H, W, 3) BGR [0,255]
+    avg_image: np.ndarray | None = None,  # (H, W, 3) BGR [0,255]
+    vgg: VGG16Features | dict | None = None,  # else loaded from vgg_path
+    use_kernel: str | bool = "auto",
+    compute_dtype: str = "float32",
+    fold_batch: str | bool = "auto",
+    remat: bool = False,
+    profile_dir: str | None = None,
+    log_every_batches: int = 12,  # reference BATCH_INFO_EVERY (train_cnn.py:29)
+    reference_typo_stats: bool = False,
+    quantize_loss: bool | str = False,
+    qat: bool | str = False,
+    quantize_gram: bool | str = "auto",
+    device: str | torch.device | None = None,
+):
+    """Train a TransformerNet for ``artist`` with the given style method.
+
+    Returns (model, losses): the trained ``TransformerNet`` on ``device`` and
+    the reference's (num_epochs, 3) float64 array of per-epoch [content,
+    style, total] sums (train_cnn.py:281, :376-378). ``device=None`` means
+    CUDA and raises without it; the CPU runs only when asked for.
+    The corpus is the first ``content_data_size`` of ``content_images``, as
+    the reference draws that many (train_cnn.py:168). ``train_size``,
+    ``content_dir``, ``archive_dir`` and ``cache_dir`` serve the file loaders,
+    ``classifier_path`` and ``reference_typo_stats`` the classifier mode; both
+    come with later slices, and a value other than the default raises.
+    """
+    if style_method not in MODES:
+        print("enter valid style method!")  # train_cnn.py:274
+        return 0
+    _refuse_unported(style_method, mesh=mesh, content_stream=content_stream, qat=qat,
+                     quantize_loss=quantize_loss, quantize_gram=quantize_gram,
+                     fold_batch=fold_batch, remat=remat, preview_every=preview_every,
+                     profile_dir=profile_dir, content_images=content_images,
+                     paintings=paintings, avg_image=avg_image,
+                     loader_args=dict(train_size=train_size, content_dir=content_dir,
+                                      archive_dir=archive_dir, cache_dir=cache_dir),
+                     classifier_args=dict(classifier_path=classifier_path,
+                                          reference_typo_stats=reference_typo_stats))
+    dev = resolve_device(device)
+
+    # The reference seeds every RNG (train_cnn.py:147-151).
+    np.random.seed(seed)
+    _random.seed(seed)
+    torch.manual_seed(seed)
+    nprng = np.random.default_rng(seed)
+
+    # The prefix comes before anything writes into the directory: the
+    # transfer_/transfer2_ choice keys off its emptiness (train_cnn.py:173-178).
+    prefix = None
+    if model_dir:
+        if resume:
+            prefix = ckpt.resume_prefix(model_dir, artist, style_method, content_weight,
+                                        style_weight)
+        else:
+            prefix = ckpt.save_dir_prefix(model_dir, artist, style_method, content_weight,
+                                          style_weight, bump=True)
+    log = MetricLogger(
+        jsonl_path=os.path.join(model_dir, artist, style_method, "metrics.jsonl")
+        if model_dir else None,
+        stdout=wordy,
+    )
+
+    model = init_transformer(torch.Generator().manual_seed(seed), dev)
+    vgg = _resolve_vgg(vgg, vgg_path, dev)
+    content_data = torch.as_tensor(np.asarray(content_images[:content_data_size], np.float32),
+                                   device=dev)
+    n_content = content_data.shape[0]
+
+    if wordy:
+        print("Getting style dataset and features!")  # train_cnn.py:180
+    t0 = time.perf_counter()
+    targets = build_style_targets(style_method, vgg, artist, paintings=paintings,
+                                  avg_image=avg_image, batch_size=batch_size, rng=nprng,
+                                  use_kernel=use_kernel)
+    log.log("style_targets_built", mode=style_method, secs=time.perf_counter() - t0)
+    if prefix is not None and targets.style_preview_bgr is not None:
+        _save_style_jpg(os.path.dirname(prefix), targets.style_preview_bgr,
+                        second=os.path.basename(prefix).startswith("transfer2"))
+
+    # ceil: the ragged final batch is kept (train_cnn.py:170) and counts as a
+    # step for the LR schedule too.
+    steps_per_epoch = -(-n_content // batch_size)
+    opt, sched = make_optimizer(model.parameters(), lr, weight_decay, num_epochs, num_steps,
+                                steps_per_epoch)
+    fns = make_step_fns(style_method, model, vgg, targets, opt, sched,
+                        content_weight=content_weight, style_weight=style_weight,
+                        batch_size=batch_size, num_content=n_content, use_kernel=use_kernel,
+                        compute_dtype=compute_dtype)
+    content_r22 = precompute_content_relu2_2(
+        vgg, content_data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
+
+    start_epoch = 0
+    losses = np.full((num_epochs, 3), -1.0, np.float64)
+    if resume and prefix is not None:
+        found = ckpt.latest_checkpoint(prefix)
+        if found is not None:
+            path, _ = found
+            start_epoch = ckpt.restore_checkpoint(path, model, opt, sched)
+            loss_path = path[: -len(".ckpt")] + ".npy"
+            if os.path.exists(loss_path):
+                prev = np.load(loss_path)
+                n = min(len(prev), num_epochs)
+                losses[:n] = prev[:n]
+            log.log("resumed", checkpoint=path, epoch=start_epoch)
+
+    if wordy:
+        print("Training!")  # train_cnn.py:278
+    run_start = time.perf_counter()
+    end_epoch = num_epochs
+    if max_epochs_this_run is not None:
+        # Time-sliced training: stop early but keep the full-run LR schedule;
+        # a later resume=True call continues where this one stopped.
+        end_epoch = min(num_epochs, start_epoch + max_epochs_this_run)
+    for epoch in range(start_epoch, end_epoch):
+        t_ep = time.perf_counter()
+        step_losses = fns.epoch_fn(content_data, content_r22,
+                                   epoch_permutation(seed, epoch, n_content),
+                                   epoch * steps_per_epoch)
+        step_losses = step_losses.cpu().numpy().astype(np.float64)  # the epoch's one sync
+        dt = time.perf_counter() - t_ep
+        el = step_losses.sum(axis=0)
+        losses[epoch] = el
+        if log_every_batches:
+            # Per-batch records (reference prints every BATCH_INFO_EVERY batches,
+            # train_cnn.py:355-357), from the per-step stack: no extra sync.
+            for s in range(0, len(step_losses), log_every_batches):
+                log.log("batch", epoch=epoch + 1, batch=s + 1,
+                        content_loss=float(step_losses[s, 0]),
+                        style_loss=float(step_losses[s, 1]),
+                        total_loss=float(step_losses[s, 2]), stdout=False)
+        log.log("epoch", epoch=epoch + 1, content_loss=float(el[0]), style_loss=float(el[1]),
+                total_loss=float(el[2]), secs=dt, images_per_sec=n_content / dt)
+        if prefix is not None and save_every and epoch % save_every == 0:
+            ckpt.save_checkpoint(prefix, epoch, model, opt, sched, losses,
+                                 completed_epochs=epoch + 1)
+
+    log.log("trained", secs=time.perf_counter() - run_start)  # train_cnn.py:387
+    if prefix is not None:
+        if end_epoch < num_epochs:
+            # Early stop (time slice): persist the resume point.
+            ckpt.save_checkpoint(prefix, end_epoch - 1, model, opt, sched, losses,
+                                 completed_epochs=end_epoch)
+        else:
+            ckpt.save_checkpoint(prefix, num_epochs, model, opt, sched, losses,
+                                 completed_epochs=num_epochs)
+            ckpt.save_params_npz(f"{prefix}_{num_epochs}.npz", model)
+            if export_pth:
+                ckpt.export_pth(f"{prefix}_{num_epochs}.pth", model)
+    log.close()
+    return model, losses
+
+
+def train_from_config(config, **overrides):
+    """Run :func:`train` from a :class:`TrainConfig`; keyword overrides win.
+
+    ``mesh_shape`` other than None raises: data-parallel training comes with
+    the port's parallel slice; so does a ``data_dir`` other than the default,
+    which the file loaders of the data-pipeline slice read.
+    """
+    from artist_style_transfer_tpu_torch.utils.config import TrainConfig
+
+    if not isinstance(config, TrainConfig):
+        raise TypeError(f"train_from_config takes a TrainConfig, got {type(config).__name__}")
+    if config.mesh_shape is not None:
+        raise NotImplementedError(
+            "mesh_shape (data-parallel training) comes with the port's parallel slice "
+            "(ROADMAP Queue 1 item 12)"
+        )
+    if config.data_dir != "images":
+        raise NotImplementedError(
+            f"data_dir={config.data_dir!r} serves the file loaders, which come with {_DATA_SLICE}")
+    kwargs = dict(
+        style_method=config.style_method,
+        artist=config.artist,
+        num_epochs=config.num_epochs,
+        batch_size=config.batch_size,
+        content_data_size=config.content_data_size,
+        seed=config.seed,
+        num_steps=config.num_steps,
+        content_weight=config.content_weight,
+        style_weight=config.style_weight,
+        lr=config.lr,
+        save_every=config.save_every,
+        train_size=config.train_size,
+        weight_decay=config.weight_decay,
+        model_dir=config.model_dir,
+        compute_dtype=config.compute_dtype,
+        log_every_batches=config.log_every_batches,
+        device=config.device,
+    )
+    kwargs.update(overrides)
+    return train(**kwargs)
+
+
+def _save_style_jpg(directory: str, image_bgr_255: np.ndarray, second: bool = False) -> None:
+    """Write style.jpg / style2.jpg like the reference (train_cnn.py:191-196), where cv2 exists."""
+    try:
+        import cv2
+    except ImportError:
+        return
+    name = "style2.jpg" if second else "style.jpg"
+    cv2.imwrite(os.path.join(directory, name), np.clip(image_bgr_255, 0, 255).astype(np.uint8))

@@ -1,0 +1,177 @@
+"""The training step and epoch (counterpart of the JAX ``train/loop.py``; reference
+train_cnn.py:282-359).
+
+What carries over from the JAX loop, and what changes:
+
+- The content corpus lives on the device, and so do its relu2_2 features,
+  computed once per run (:func:`precompute_content_relu2_2`); a batch is a
+  gather by index from both. The ragged final batch runs at its own size
+  (the reference DataLoader keeps it, train_cnn.py:170).
+- 'cycle' targets are indexed by the global step, ``step % P``.
+- The optimizer is torch ``Adam(lr, weight_decay)`` (L2 folded into the
+  gradient, eps outside the sqrt) with the StepLR schedule of the reference
+  written per optimizer step (:func:`make_optimizer`).
+- JAX's one ``lax.scan`` per epoch becomes a Python loop of eager steps.
+  The per-step [content, style, total] losses stay on the device until the
+  epoch ends, so the loop never waits for the card inside an epoch.
+- ``jax.random`` permutations cannot be reproduced, so the epoch function
+  takes its permutation as an argument, as JAX's does;
+  :func:`epoch_permutation` is the port's own, keyed on (seed, epoch).
+- ``compute_dtype="bfloat16"`` casts the params, the batch and a copy of the
+  VGG weights to bf16 inside the step (``torch.func.functional_call``), so
+  the master weights, Adam's state and the gradients stay f32, and the
+  losses are reduced in f32.
+
+Every Gram of the step goes through :func:`ops.losses.style_loss_gram`,
+which runs the Hopper Gram kernel on a CUDA device: four launches a step.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.models.vgg import VGG16Features
+from artist_style_transfer_tpu_torch.ops.image import vgg_caffe_preprocess
+from artist_style_transfer_tpu_torch.ops.losses import content_loss, style_loss_gram
+from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_optimizer(
+    params,
+    lr: float,
+    weight_decay: float,
+    num_epochs: int,
+    num_steps: int,
+    steps_per_epoch: int,
+) -> tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
+    """torch Adam(lr, weight_decay) + StepLR(num_epochs//num_steps, 0.5), per step.
+
+    The reference steps StepLR once an epoch (train_cnn.py:375); here the
+    scheduler steps after every optimizer step, at
+    ``lr * 0.5 ** (step // decay_every)`` with
+    ``decay_every = max(1, (num_epochs // max(1, num_steps)) * steps_per_epoch)``.
+    With num_epochs < num_steps that is 1: the LR halves every step, as in JAX.
+    """
+    decay_every = max(1, (num_epochs // max(1, num_steps)) * steps_per_epoch)
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 0.5 ** (step // decay_every))
+    return opt, sched
+
+
+@dataclasses.dataclass(frozen=True)
+class StepFns:
+    """The loss, one optimizer step, and one epoch for one configuration."""
+
+    # (params {name: tensor}, batch, content_r22, grams, step) -> (total, (content, style))
+    loss_fn: Callable
+    # (batch, content_r22, step) -> (3,) [content, style, total] on the device
+    step_fn: Callable
+    # (content_data, content_r22, perm, base_step) -> (steps_per_epoch, 3) on the device
+    epoch_fn: Callable
+    steps_per_epoch: int
+
+
+def make_step_fns(
+    mode: str,
+    model: TransformerNet,
+    vgg: VGG16Features,
+    targets: StyleTargets,
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.LRScheduler,
+    *,
+    content_weight: float,
+    style_weight: float,
+    batch_size: int,
+    num_content: int,
+    use_kernel: str | bool = "auto",
+    compute_dtype: str = "float32",
+) -> StepFns:
+    """Build the step functions of a Gram-mode training run.
+
+    ``model`` and ``vgg`` live on the training device; the step updates
+    ``model``'s parameters in place through ``optimizer`` and ``scheduler``.
+    """
+    if mode == "classifier":
+        raise NotImplementedError(
+            "'classifier' training comes with the port's classifier slice (ROADMAP Queue 1 item 8)"
+        )
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got {compute_dtype!r}")
+    steps_full = num_content // batch_size
+    if steps_full == 0:
+        raise ValueError(f"content_data_size={num_content} < batch_size={batch_size}")
+    steps_per_epoch = steps_full + (1 if num_content % batch_size else 0)
+    cdtype = COMPUTE_DTYPES[compute_dtype]
+    # The frozen VGG is cast once, like JAX's vgg_compute; its weights get no gradient.
+    vgg_compute = vgg if cdtype == torch.float32 else copy.deepcopy(vgg).to(cdtype)
+    num_cycle = targets.num_cycle if mode == "cycle" else 0
+
+    def loss_fn(params, batch, content_r22, grams, step):
+        if cdtype != torch.float32:
+            params = {k: v.to(cdtype) for k, v in params.items()}
+            batch = batch.to(cdtype)
+        gen = functional_call(model, params, (batch,))
+        feats = vgg_compute(vgg_caffe_preprocess(gen))
+        c_loss = content_weight * content_loss(feats["relu2_2"], content_r22)
+        s_loss = style_weight * style_loss_gram(
+            feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel
+        )
+        return c_loss + s_loss, (c_loss, s_loss)
+
+    params = dict(model.named_parameters())
+
+    def step_fn(batch, content_r22, step):
+        optimizer.zero_grad(set_to_none=True)
+        total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step)
+        total.backward()
+        optimizer.step()
+        scheduler.step()
+        return torch.stack([c_loss, s_loss, total]).detach()
+
+    def epoch_fn(content_data, content_r22, perm, base_step):
+        perm = torch.as_tensor(np.array(perm), dtype=torch.long).to(content_data.device)
+        losses = []
+        for i in range(steps_per_epoch):
+            idx = perm[i * batch_size : (i + 1) * batch_size]  # the last one may be ragged
+            losses.append(step_fn(content_data.index_select(0, idx),
+                                  content_r22.index_select(0, idx), base_step + i))
+        return torch.stack(losses)
+
+    return StepFns(loss_fn=loss_fn, step_fn=step_fn, epoch_fn=epoch_fn,
+                   steps_per_epoch=steps_per_epoch)
+
+
+def precompute_content_relu2_2(
+    vgg: VGG16Features, content_data: torch.Tensor, chunk: int = 16,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """relu2_2 features (N, H/2, W/2, 128) of the whole content corpus, on its device.
+
+    Computed once, in f32, ``chunk`` images at a time; ``dtype=torch.bfloat16``
+    halves the resident footprint (6.4 MB an image at 224x224 in f32) for
+    mixed-precision runs.
+    """
+    with torch.no_grad():
+        out = torch.cat([
+            vgg(vgg_caffe_preprocess(content_data[i : i + chunk]), just_content=True)
+            for i in range(0, content_data.shape[0], chunk)
+        ])
+    return out.to(dtype) if dtype is not None else out
+
+
+def epoch_permutation(seed: int, epoch: int, n: int) -> torch.Tensor:
+    """Deterministic shuffle for (seed, epoch), so a resumed run sees the same order.
+
+    A CPU ``torch.Generator`` seeded from ``np.random.SeedSequence([seed, epoch])``.
+    """
+    key = int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0])
+    return torch.randperm(n, generator=torch.Generator().manual_seed(key))

@@ -1,12 +1,35 @@
-"""Inference configuration (the port's own copy of the JAX ``utils/config.py``
-``InferenceConfig``; reference inference.py:24-52 constants).
-
-``TrainConfig`` belongs to the training slice.
-"""
+"""Training and inference configuration (the port's own copy of the JAX
+``utils/config.py``; reference train_cnn.py:25-44 and inference.py:24-52 constants)."""
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training configuration. Defaults = reference defaults (train_cnn.py:25-44)."""
+
+    style_method: str = "random"  # 'random'|'average'|'smartaverage'|'cycle'|'classifier'
+    artist: str = "Albrecht_Dürer"
+    num_epochs: int = 200
+    batch_size: int = 4
+    content_data_size: int = 256
+    seed: int = 2
+    num_steps: int = 2  # LR halvings: StepLR(step=num_epochs//num_steps, gamma=0.5)
+    content_weight: float = 17.0
+    style_weight: float = 25.0
+    lr: float = 0.0024
+    save_every: int = 10
+    weight_decay: float = 1e-4  # reference train_cnn.py:247
+    train_size: int = 224  # reference TRAIN_SIZE (gpu default), train_cnn.py:28
+
+    compute_dtype: str = "float32"  # 'float32' for parity, 'bfloat16' for speed
+    data_dir: str = "images"
+    model_dir: str = "models"
+    log_every_batches: int = 12  # reference BATCH_INFO_EVERY, train_cnn.py:29
+    mesh_shape: tuple[int, ...] | None = None  # any value raises: the parallel slice
+    device: str | None = None  # torch device; None means "cuda"
 
 
 @dataclasses.dataclass

@@ -1,9 +1,11 @@
-"""Convert the JAX package's parameter pytrees into the port's state dicts.
+"""Convert between the JAX package's parameter pytrees and the port's state dicts.
 
 The inverse of the JAX ``utils/torch_import.py`` importers, for params given
 as numpy-array pytrees (``jax.tree.map(np.asarray, params)``), so parity
-tests can run both packages on the same weights. This module imports neither
-JAX nor the JAX package.
+tests can run both packages on the same weights; and, for the TransformerNet,
+the way back (:func:`transformer_state_dict_to_jax`), which writes the
+``.npz`` artifacts in the JAX key layout. This module imports neither JAX
+nor the JAX package.
 
 Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
 weights are *spatially flipped* HWIO (the importer flips once so the
@@ -61,6 +63,38 @@ def transformer_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         put_deconv(f"DeconvBlock.{idx}", params["decoder"][i])
     put_conv("DeconvBlock.6", params["output"], norm=False)
     return sd
+
+
+def transformer_state_dict_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """Reference ``StyleTransfer`` state dict -> JAX TransformerNet pytree of f32 numpy
+    arrays (inverse of :func:`transformer_state_dict_from_jax`; JAX
+    ``transformer_params_from_torch``, ``utils/torch_import.py:64``)."""
+
+    def a(key: str) -> np.ndarray:
+        return sd[key].detach().cpu().float().numpy().copy()  # no alias of a live parameter
+
+    def conv(prefix: str, norm: bool = True) -> dict:
+        p = {"w": np.ascontiguousarray(np.transpose(a(f"{prefix}.conv_layer.weight"), (2, 3, 1, 0))),
+             "b": a(f"{prefix}.conv_layer.bias")}
+        if norm:
+            p["gamma"] = a(f"{prefix}.norm_layer.weight")
+            p["beta"] = a(f"{prefix}.norm_layer.bias")
+        return p
+
+    def deconv(prefix: str) -> dict:
+        w = a(f"{prefix}.conv_transpose.weight")[:, :, ::-1, ::-1]  # (I, O, kH, kW), flipped
+        return {"w": np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))),
+                "b": a(f"{prefix}.conv_transpose.bias"),
+                "gamma": a(f"{prefix}.norm_layer.weight"),
+                "beta": a(f"{prefix}.norm_layer.bias")}
+
+    return {
+        "encoder": [conv(f"ConvBlock.{i}") for i in (0, 2, 4, 6)],
+        "residual": [{"conv1": conv(f"ResidualBlock.{i}.conv1"),
+                      "conv2": conv(f"ResidualBlock.{i}.conv2")} for i in range(5)],
+        "decoder": [deconv(f"DeconvBlock.{i}") for i in (0, 2, 4)],
+        "output": conv("DeconvBlock.6", norm=False),
+    }
 
 
 def vgg16_state_dict_from_jax(params: list[dict]) -> dict[str, torch.Tensor]:

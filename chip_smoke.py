@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py             # every phase, one card
-    python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize batch
+    python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
+                                      # batch, 4 training steps
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -13,7 +14,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. build: compiles ``csrc/*.cu`` with nvcc (set-up time) and counts the
    tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS;
 2. gram: the Hopper Gram kernel against the plain PyTorch version at the
-   VGG tap shapes of Gatys at 256x256 (N=1) and of a 512x512 batch of 4,
+   VGG tap shapes of Gatys at 256x256 (N=1), of a training batch (224x224,
+   N=4) and of a 512x512 batch of 4,
    in f32 and bf16, with its gradient; kernel / plain / cuBLAS times by CUDA
    events (warm), kernel and cuBLAS device time by the profiler with L2
    flushed before each call (cold), and the bound;
@@ -23,7 +25,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. gatys: 5 steps with the kernel against 5 without (loss traces within
    1e-4), then the main path: 300 default steps with the kernel counter
    zeroed just before, which must count 4 + 4*300 = 1204 launches;
-5. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+5. train: 'cycle' training of the full-width TransformerNet through
+   ``train()`` at 224x224, B=4, 16 seeded content images, 8 seeded paintings,
+   3 epochs, f32 parity mode, random seeded VGG16: finite per-step losses,
+   the third epoch's total below the first's, 4*ceil(8/8) + 4*12 = 52 kernel
+   launches (counter zeroed just before), the exported ``.pth`` and ``.npz``
+   reloaded and run; 3 steps with the kernel against 3 without (per-step
+   losses within 1e-4); the FLOPs of one step (``FlopCounterMode``) and its
+   bound by the rule of the Gram's (FP32 or 3xTF32, whichever is faster); one epoch with ``compute_dtype="bfloat16"``;
+   ms/step and images/s of epochs 2-3 (host clock, each epoch ends in a
+   sync) and peak memory;
+6. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor cv2 or PIL. Without CUDA, or
 without the port's package beside it, it exits non-zero and prints no
@@ -35,8 +47,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,6 +73,12 @@ FLUSH_BYTES = 256 << 20  # written between timed calls: more than the H100's 50 
 TAPS = (("relu1_2", 1, 64), ("relu2_2", 2, 128), ("relu3_3", 4, 256), ("relu4_3", 8, 512))
 GATYS_SIZE = 256
 GATYS_STEPS = 300
+# The 'cycle' train phase: reference TRAIN_SIZE and batch (train_cnn.py:28, :144).
+TRAIN_SIZE = 224
+TRAIN_BATCH = 4
+TRAIN_CONTENT = 16
+TRAIN_PAINTINGS = 8
+TRAIN_EPOCHS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -84,35 +104,47 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
+def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 5) -> float:
     """Device time per call of ``fn`` from ``torch.profiler``, with L2 flushed before each call.
 
     Counts the kernels whose name holds ``kernel`` (``""``: every kernel of
     ``fn``), which must run the same number of times in every call; the
     flush's own fill kernel never counts. The profiler now and then drops
-    device events (seen on the H100 machine: 11 of 20 launches recorded);
-    such a window is taken again, up to ``attempts`` times.
+    device events (seen on the H100 machine: 11 or 18 of 20 launches
+    recorded), so each window is a warm-up cycle of the profiler followed by
+    the recorded one, and a window that still lost events is taken again, up
+    to ``attempts`` times.
     """
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush.fill_(1.0)
-                fn()
-            torch.cuda.synchronize()
-        rows = [ev for ev in prof.key_averages()
+        recorded = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+            for _ in range(2):  # the profiler's warm-up cycle, then the recorded one
+                for _ in range(iters):
+                    flush.fill_(1.0)
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # The schedule's ``ProfilerStep#`` range shows on the device as a user
+        # annotation; it is no kernel.
+        rows = [ev for ev in (recorded[0] if recorded else [])
                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.key.startswith("ProfilerStep")
                 and "FillFunctor" not in ev.key and kernel in ev.key]
         launches = sum(ev.count for ev in rows)
         if launches > 0 and launches % iters == 0:
             return sum(ev.self_device_time_total for ev in rows) / 1e3 / iters
     raise SystemExit(f"chip_smoke: FAILED: device_ms: {launches} launches of '{kernel}' "
-                     f"recorded over {iters} calls, {attempts} times")
+                     f"recorded over {iters} calls, {attempts} times: "
+                     f"{[(ev.key[:60], ev.count) for ev in rows]}")
 
 
 def gram_bound(n: int, hw: int, c: int, dtype: torch.dtype, peaks: dict) -> tuple[float, float]:
@@ -160,6 +192,8 @@ def phase_header() -> str:
         precision=precision.get_precision(),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
     )
     require(not torch.backends.cuda.matmul.allow_tf32, "cuBLAS TF32 is on in parity mode")
     require(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on in parity mode")
@@ -193,9 +227,10 @@ def phase_gram(peaks: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst_abs = worst_rel = 0.0
-    main = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "ops_ms": 0.0, "bytes_ms": 0.0}
-    for size, n in ((GATYS_SIZE, 1), (512, 4)):
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    main = dict.fromkeys(keys, 0.0)  # the 4 taps of a Gatys step (256², N=1, f32)
+    train = dict.fromkeys(keys, 0.0)  # the 4 taps of a train step (224², N=4, f32)
+    for size, n in ((GATYS_SIZE, 1), (TRAIN_SIZE, TRAIN_BATCH), (512, 4)):
         for tap, down, c in TAPS:
             hw = (size // down) ** 2
             for dtype in (torch.float32, torch.bfloat16):
@@ -256,12 +291,12 @@ def phase_gram(peaks: dict) -> dict:
                      bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
                      bound_share=bound_ms / kernel_dev, gflop=flops / 1e9,
                      kernel_tflops=flops / kernel_dev / 1e9)
-                if size == GATYS_SIZE and n == 1 and dtype == torch.float32:
-                    for k, v in (("ms", kernel_ms), ("device_ms", kernel_dev),
-                                 ("plain_ms", plain_ms), ("library_ms", library_ms),
-                                 ("bound_ms", bound_ms), ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
-                        main[k] += v
-    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main}
+                sums = {GATYS_SIZE: main, TRAIN_SIZE: train}.get(size)
+                if sums is not None and dtype == torch.float32:
+                    for k, v in zip(keys, (kernel_ms, kernel_dev, plain_ms, library_ms,
+                                           bound_ms, t_ops, t_bytes)):
+                        sums[k] += v
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main, "train_taps": train}
 
 
 def phase_stylize() -> None:
@@ -336,11 +371,152 @@ def phase_gatys() -> int:
     return launches
 
 
+def train_data(size: int = TRAIN_SIZE) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded content images and paintings, NHWC BGR [0,255] f32."""
+    rng = np.random.default_rng(2)
+    content = rng.uniform(0, 255, (TRAIN_CONTENT, size, size, 3)).astype(np.float32)
+    paintings = rng.uniform(0, 255, (TRAIN_PAINTINGS, size, size, 3)).astype(np.float32)
+    return content, paintings
+
+
+def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray, use_kernel, device: str):
+    """'cycle' step functions from ``init_transformer`` seed 0, and the corpus on ``device``."""
+    from artist_style_transfer_tpu_torch.models.transformer import init_transformer
+    from artist_style_transfer_tpu_torch.train.loop import (
+        make_optimizer,
+        make_step_fns,
+        precompute_content_relu2_2,
+    )
+    from artist_style_transfer_tpu_torch.train.styles import build_style_targets
+
+    model = init_transformer(torch.Generator().manual_seed(0), device)
+    targets = build_style_targets("cycle", vgg, "Seeded", paintings=paintings,
+                                  use_kernel=use_kernel)
+    steps = -(-len(content) // TRAIN_BATCH)
+    opt, sched = make_optimizer(model.parameters(), 0.0024, 1e-4, TRAIN_EPOCHS, 2, steps)
+    fns = make_step_fns("cycle", model, vgg, targets, opt, sched, content_weight=17.0,
+                        style_weight=25.0, batch_size=TRAIN_BATCH, num_content=len(content),
+                        use_kernel=use_kernel)
+    data = torch.as_tensor(content, device=device)
+    return fns, data, precompute_content_relu2_2(vgg, data)
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def phase_train(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> tuple[int, int]:
+    """The 'cycle' train() main path, its exports, kernel against plain, the step's
+    FLOPs and bound, and a bf16 epoch.
+
+    Returns the kernel launches of the f32 main path and of the bf16 epoch.
+    """
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+    from artist_style_transfer_tpu_torch.train import train
+
+    vgg = init_vgg16(torch.Generator().manual_seed(0), device=device)
+    content, paintings = train_data(size)
+    steps_per_epoch = -(-TRAIN_CONTENT // TRAIN_BATCH)
+    expect = 4 * -(-TRAIN_PAINTINGS // 8) + 4 * TRAIN_EPOCHS * steps_per_epoch
+    kwargs = dict(batch_size=TRAIN_BATCH, seed=0, num_steps=2, save_every=1,
+                  content_images=content, paintings=paintings, vgg=vgg, device=device,
+                  wordy=False, log_every_batches=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # The main path: counter zeroed just before, read just after.
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        model, losses = train("cycle", "Seeded", num_epochs=TRAIN_EPOCHS, model_dir=tmp, **kwargs)
+        seconds = time.perf_counter() - t0
+        launches = gram_kernel.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        run_dir = os.path.join(tmp, "Seeded", "cycle")
+        events = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+        steps = np.array([[e["content_loss"], e["style_loss"], e["total_loss"]]
+                          for e in events if e["event"] == "batch"])
+        epochs = [e for e in events if e["event"] == "epoch"]
+        require(steps.shape == (TRAIN_EPOCHS * steps_per_epoch, 3),
+                f"train: {steps.shape} per-step loss records")
+        require(bool(np.isfinite(steps).all()) and bool(np.isfinite(losses).all()),
+                "train: a loss is not finite")
+        require(losses[-1, 2] < losses[0, 2],
+                f"train: epoch {TRAIN_EPOCHS} total {losses[-1, 2]} not below epoch 1's "
+                f"{losses[0, 2]}")
+        require(launches == expect, f"train: gram launches {launches} != {expect}")
+        warm = epochs[1:]
+        warm_s = sum(e["secs"] for e in warm)
+        warm_steps = len(warm) * steps_per_epoch
+
+        # The exports reload and stylize, and give what the trained model gives.
+        probe = content[:1]
+        ref = stylize(model, probe, clip=False, device=device).float().cpu().numpy()
+        reload_db = {}
+        for ext in ("pth", "npz"):
+            path = os.path.join(run_dir, f"transfer_17-25_{TRAIN_EPOCHS}.{ext}")
+            out = stylize(load_transfer_params(path, device=device), probe, clip=False,
+                          device=device).float().cpu().numpy()
+            require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                    f"train: the {ext} export did not stylize")
+            db = psnr(out, ref)
+            require(db > 45.0, f"train: {ext} export {db} dB from the model")
+            reload_db[ext] = float(np.abs(out - ref).max())
+
+        # Kernel against plain: 3 steps from the same init and data.
+        traces = []
+        for use_kernel in (True, False):
+            fns, data, r22 = train_step_fns(vgg, content[: 3 * TRAIN_BATCH], paintings,
+                                            use_kernel, device)
+            traces.append(fns.epoch_fn(data, r22, torch.arange(len(data)), 0).cpu())
+        trace_rel = ((traces[0] - traces[1]).abs() / traces[1].abs()).max().item()
+        require(trace_rel <= 1e-4, f"train 3-step losses kernel vs plain: rel {trace_rel}")
+
+        # The step's bound: its counted FLOPs (convs fwd, dgrad and wgrad; matmuls) at
+        # f32 accuracy, as gram_bound counts K1's: FP32 on the CUDA cores or 3xTF32 on
+        # the tensor cores, whichever is faster; its bytes weigh far less.
+        with FlopCounterMode(display=False) as counter:
+            fns.step_fn(data[:TRAIN_BATCH], r22[:TRAIN_BATCH], 0)
+        step_flops = counter.get_total_flops()
+        step_bound_ms = min(step_flops / peaks["fp32"], 3 * step_flops / peaks["tf32"]) * 1e3
+
+        # One epoch in bf16: K1's bf16 route on the train path.
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, bf16_losses = train("cycle", "Seeded", num_epochs=1, model_dir=None,
+                               compute_dtype="bfloat16", **kwargs)
+        bf16_seconds = time.perf_counter() - t0
+        bf16_launches = gram_kernel.LAUNCHES
+        require(bool(np.isfinite(bf16_losses).all()), "train bf16: a loss is not finite")
+        require(bf16_launches == 4 + 4 * steps_per_epoch,
+                f"train bf16: gram launches {bf16_launches} != {4 + 4 * steps_per_epoch}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train", mode="cycle", size=size, batch=TRAIN_BATCH, content=TRAIN_CONTENT,
+         paintings=TRAIN_PAINTINGS, epochs=TRAIN_EPOCHS, steps=int(steps.shape[0]),
+         epoch_losses=losses.tolist(), step_total_first=float(steps[0, 2]),
+         step_total_last=float(steps[-1, 2]), gram_launches=launches, seconds=seconds,
+         epoch_secs=[e["secs"] for e in epochs], ms_per_step=warm_s * 1e3 / warm_steps,
+         images_per_sec=warm_steps * TRAIN_BATCH / warm_s, step_gflop=step_flops / 1e9,
+         step_bound_ms=step_bound_ms, step_bound_share=step_bound_ms * warm_steps / (warm_s * 1e3),
+         peak_mem_gib=peak_gib,
+         reload_max_abs_diff=reload_db, kernel_vs_plain_step_rel=trace_rel,
+         bf16_epoch_losses=bf16_losses.tolist(), bf16_gram_launches=bf16_launches,
+         bf16_seconds=bf16_seconds)
+    return launches, bf16_launches
+
+
 def profile_window(path: str, run, units: int, unit: str) -> None:
     """Device time by kernel over one warm call of ``run`` (``--profile`` only).
 
-    Only device-side events count: the host-side ``aten::`` rows carry their
-    kernels' time too, and summing both would count it twice.
+    Only device-side kernel events count: the host-side ``aten::`` rows carry
+    their kernels' time too, and so does the device-side range of a user
+    annotation (``Optimizer.step#Adam.step``); summing them would count it twice.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -353,7 +529,8 @@ def profile_window(path: str, run, units: int, unit: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     require(total_us > 0, f"profile of {path}: no device time recorded")
@@ -365,7 +542,8 @@ def profile_window(path: str, run, units: int, unit: str) -> None:
 
 
 def phase_profile() -> None:
-    """Where the device time goes: 10 Gatys steps, and one stylize batch of 4 at 512²."""
+    """Where the device time goes: 10 Gatys steps, one stylize batch of 4 at 512², and one
+    'cycle' training epoch of 4 steps at 224², B=4."""
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_batched
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
     from artist_style_transfer_tpu_torch.train.gatys import gatys_stylize
@@ -380,12 +558,17 @@ def phase_profile() -> None:
     batch = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(4)]
     profile_window("stylize", lambda: stylize_batched(model, batch, batch_size=4, device="cuda"),
                    4, "image")
+    content, paintings = train_data()
+    fns, data, r22 = train_step_fns(vgg, content, paintings, "auto", "cuda")
+    perm = torch.arange(len(data))
+    profile_window("train", lambda: fns.epoch_fn(data, r22, perm, 0), fns.steps_per_epoch,
+                   "step")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile a few Gatys steps by kernel")
+                        help="also profile Gatys steps, a stylize batch and train steps by kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -397,7 +580,8 @@ def main(argv=None) -> int:
     phase_build()
     gram = phase_gram(peaks)
     phase_stylize()
-    launches = phase_gatys()
+    launches = {"gatys": phase_gatys()}
+    launches["train"], launches["train_bf16"] = phase_train(peaks)
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -406,7 +590,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": GRAM_SOURCE,
         "replaces": GRAM_REPLACES,
-        "launches": launches,
+        "launches": launches["gatys"],
+        "launches_by_path": launches,
         "max_abs_err": gram["max_abs_err"],
         "max_rel_err": gram["max_rel_err"],
         "ms": gram["ms"],
@@ -415,8 +600,13 @@ def main(argv=None) -> int:
         "bound_ms": gram["bound_ms"],
         "bound_by": "operations" if gram["ops_ms"] >= gram["bytes_ms"] else "bytes",
         "library_ms": gram["library_ms"],
+        "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
+                        "count, its counter zeroed just before it",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
-                     "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler",
+                     "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
+                     f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
+                     f"N={TRAIN_BATCH}, f32)",
+        "train_taps": gram["train_taps"],
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
