@@ -1,1 +1,1 @@
-"""Feed-forward stylization."""
+"""Feed-forward stylization and classifier evaluation."""

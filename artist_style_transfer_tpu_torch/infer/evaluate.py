@@ -1,0 +1,102 @@
+"""Quantitative evaluation with the artist classifier (counterpart of the JAX
+``infer/evaluate.py``; reference inference.py:153-166).
+
+The repo's one quantitative quality metric: stylize content images, clip to
+uint8, center crop 256, torchvision-normalize, classify, and report the top-1
+accuracy against the target artist. The reference runs image by image with
+host round trips; here each batch runs the whole pipeline on the device, and
+only its predictions come back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
+from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.ops.image import bgr_to_rgb, center_crop, torchvision_normalize
+from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
+
+
+def eval_logits(
+    model: TransformerNet,
+    classifier: ResNet50Classifier,
+    images_bgr_255: torch.Tensor,
+    crop_size: int = 256,
+) -> torch.Tensor:
+    """Stylize -> uint8 clip -> crop -> classify, for one NHWC batch on the models' device
+    (JAX ``_eval_core``).
+
+    The reference saves to uint8 before its classifier transform
+    (inference.py:116 -> :154), so the output is clipped and floored first.
+    """
+    with torch.inference_mode():
+        out = torch.floor(model(images_bgr_255.float()).clamp(0.0, 255.0))
+        rgb01 = bgr_to_rgb(center_crop(out, crop_size)) / 255.0
+        return classifier(torchvision_normalize(rgb01))
+
+
+def evaluate_with_classifier(
+    model: TransformerNet,
+    classifier: ResNet50Classifier,
+    content_images,
+    artist_index: int,
+    batch_size: int = 4,
+    wordy: bool = True,
+    artists: tuple[str, ...] | None = None,
+    quantize: bool = False,
+    fold_batch: bool = False,
+    crop_size: int = 256,
+    mesh=None,
+    device: str | torch.device | None = None,
+) -> float:
+    """Top-1 accuracy, in % rounded to 2 decimals, of ``classifier`` naming the artist.
+
+    ``content_images``: an (N, H, W, 3) BGR [0,255] array, or a list of HWC
+    images of possibly different sizes (uint8 or float); images batch by
+    exact (H, W), and the last chunk of a size is padded by repeating its
+    last image. ``model`` and ``classifier`` must live on ``device``
+    (``None`` means CUDA). Prints ``Pred=...`` lines (with ``artists``) and
+    ``Acc=...`` as the reference does (inference.py:155-166).
+
+    ``fold_batch`` is accepted and changes nothing: the JAX package's batch->H
+    fold is a TPU layout rewrite of the same math. ``crop_size`` is 256 in the
+    reference; smaller values serve tests at small shapes.
+    """
+    del fold_batch
+    if quantize:
+        raise NotImplementedError(
+            "quantize=True (the int8 eval pipeline) comes with the port's int8 slice "
+            "(ROADMAP Queue 1 item 10)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh (data-parallel eval) comes with the port's parallel slice (ROADMAP Queue 1 item 12)")
+    dev = resolve_device(device)
+    for name, net in (("model", model), ("classifier", classifier)):
+        net_dev = next(net.parameters()).device
+        if not same_device(net_dev, dev):
+            raise ValueError(f"{name} is on {net_dev}, not on {dev}")
+
+    n = len(content_images)
+    preds = np.zeros((n,), np.int64)
+    by_shape: dict[tuple, list[int]] = {}
+    for i in range(n):
+        by_shape.setdefault(tuple(content_images[i].shape[:2]), []).append(i)
+    for idxs in by_shape.values():
+        for j in range(0, len(idxs), batch_size):
+            take = idxs[j : j + batch_size]
+            chunk = np.stack([np.asarray(content_images[i]) for i in take])
+            pad = batch_size - len(take)
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+            logits = eval_logits(model, classifier, torch.as_tensor(chunk).to(dev), crop_size)
+            preds[take] = logits.argmax(-1).cpu().numpy()[: len(take)]
+    correct = int((preds == artist_index).sum())
+    if wordy and artists is not None:
+        for i, p in enumerate(preds):
+            print(f"Pred={artists[p]}\tActual={artists[artist_index]}\timage_num={i + 1}")
+    acc = round(100.0 * correct / max(1, n), 2)
+    if wordy:
+        print(f"Acc={acc}")  # inference.py:166
+    return acc

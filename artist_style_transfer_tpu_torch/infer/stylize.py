@@ -14,17 +14,7 @@ import numpy as np
 import torch
 
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
-from artist_style_transfer_tpu_torch.utils.device import resolve_device
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Device equality where a CUDA device without an index means the current one."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 
 
 def stylize(
@@ -42,7 +32,7 @@ def stylize(
     """
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
-    if not _same_device(model_dev, dev):
+    if not same_device(model_dev, dev):
         raise ValueError(f"model is on {model_dev}, not on {dev}")
     x = torch.as_tensor(images_bgr_255).to(dev).float()
     with torch.inference_mode():

@@ -1,12 +1,17 @@
 """Inference CLI — ``python -m artist_style_transfer_tpu_torch.inference``.
 
 The flags of the JAX package's inference CLI, on the GPU (``--device cpu``
-to run on the CPU). The display mode (default) stylizes one content image,
-optionally blurs/sharpens it and writes a 2/3-panel figure to
-figs/<artist>_<method>.png (reference inference.py:70-152). The
-``--no-display`` classifier evaluation, the interactive ``--show`` window
-and ``--quantize`` belong to later slices of the port and raise
-``NotImplementedError``.
+to run on the CPU). Two modes, as in the reference:
+
+- display (default): stylize one content image, optionally blur/sharpen it,
+  and write a 2/3-panel figure to figs/<artist>_<method>.png
+  (inference.py:70-152);
+- ``--no-display``: stylize up to ``--num_images`` JPEGs of ``--content_dir``
+  and print the classifier's accuracy ``Acc=...`` (inference.py:79-166).
+
+Both decode with OpenCV, imported only when they run. The interactive
+``--show`` window and the int8 ``--quantize`` eval belong to later slices of
+the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,6 +94,50 @@ def run_display(args, model) -> str:
     return fig_path
 
 
+def load_eval_images(args) -> list[np.ndarray]:
+    """Up to ``--num_images`` BGR uint8 JPEGs of ``--content_dir``, shuffled by ``--seed``.
+
+    Under ``--resize_imgs`` each is resized to ``--resize_size`` square;
+    otherwise images above 1600 rows or 1024 columns, or below 224 in either,
+    are skipped (inference.py:84-101). Unreadable files are skipped.
+    """
+    import random as _random
+
+    import cv2
+
+    files = [f for f in os.listdir(args.content_dir) if ".jpg" in f or ".JPEG" in f]
+    rng = _random.Random(args.seed) if args.seed is not None else _random
+    rng.shuffle(files)
+    content = []
+    for fname in files:
+        im = cv2.imread(os.path.join(args.content_dir, fname))
+        if im is None:
+            continue
+        if args.resize_imgs:
+            im = cv2.resize(im, (args.resize_size, args.resize_size))
+        else:
+            h, w, _ = im.shape
+            if h > 1600 or w > 1024 or h < 224 or w < 224:
+                continue
+        content.append(im)
+        if len(content) == args.num_images:
+            break
+    return content
+
+
+def run_eval(args, model) -> float:
+    """Classifier-accuracy evaluation (inference.py:79-166); returns the accuracy in %."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19, load_classifier
+
+    classifier = load_classifier(args.classifier_path, args.device)
+    content = load_eval_images(args)
+    print(f"Grabbed {len(content)} images!\n")  # inference.py:102
+    # Mixed sizes (under --no-resize_imgs) batch by exact shape inside.
+    return evaluate_with_classifier(model, classifier, content, ARTISTS_19.index(args.artist),
+                                    artists=ARTISTS_19, device=args.device)
+
+
 def main(argv=None):
     return _run(build_parser().parse_args(argv))
 
@@ -96,19 +145,21 @@ def main(argv=None):
 def _run(args):
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
 
-    if not args.display:
+    if args.show:
+        raise NotImplementedError("--show (the interactive figure window) is not ported yet")
+    if args.quantize:
         raise NotImplementedError(
-            "--no-display (classifier evaluation) comes with the port's classifier slice"
-        )
-    if args.show or args.quantize:
-        raise NotImplementedError("--show and --quantize are not ported yet")
+            "--quantize (the int8 eval pipeline) comes with the port's int8 slice "
+            "(ROADMAP Queue 1 item 10)")
     model_dir = os.path.join(args.model_dir, args.artist, args.style_method)
     if args.model_filename is None or not os.path.exists(
         os.path.join(model_dir, args.model_filename)
     ):
         raise NotImplementedError(args.model_filename)  # inference.py:63-64
     model = load_transfer_params(os.path.join(model_dir, args.model_filename), args.device)
-    return run_display(args, model)
+    if args.display:
+        return run_display(args, model)
+    return run_eval(args, model)
 
 
 if __name__ == "__main__":

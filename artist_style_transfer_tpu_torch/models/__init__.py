@@ -1,1 +1,2 @@
-"""Models of the port: TransformerNet and the VGG16 feature extractor."""
+"""Models of the port: TransformerNet, the VGG16 feature extractor and the ResNet-50
+artist classifier."""

@@ -1,4 +1,4 @@
-"""Content and Gram style losses (counterpart of the JAX ``ops/losses.py``).
+"""Content, Gram style and classifier losses (counterpart of the JAX ``ops/losses.py``).
 
 Unfolded and unquantized: the batch->H fold and the int8 Gram of the JAX
 module are TPU layout and int8 work that belong to later slices. MSE has
@@ -41,3 +41,12 @@ def style_loss_gram(
         term = mse(gram_matrix(gen_features[name], use_kernel=use_kernel), target_grams[name])
         loss = term if loss is None else loss + term
     return loss
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy with ``nn.CrossEntropyLoss`` semantics, in f32.
+
+    ``logits`` (N, classes) in any float dtype, ``labels`` (N,) int64.
+    """
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[:, None]).mean()

@@ -1,6 +1,7 @@
-"""Instance norm with a hand-derived backward (counterpart of the JAX ``ops/norm.py:17-145``).
+"""Instance norm with a hand-derived backward, and frozen batch norm (counterpart of the
+JAX ``ops/norm.py:17-167``).
 
-Both functions are one ``torch.autograd.Function``: the forward keeps ``x``
+Both instance-norm functions are one ``torch.autograd.Function``: the forward keeps ``x``
 (already resident) and the (N, C, 1, 1) f32 statistics (f64 for f64 input), and the backward
 recomputes x-hat from them instead of letting autograd save the f32
 ``x - mean`` of every layer. ``instance_norm_act`` folds the following ReLU
@@ -20,8 +21,9 @@ from torch.autograd.function import once_differentiable
 
 from artist_style_transfer_tpu_torch.ops.precision import get_precision
 
-# torch nn.InstanceNorm2d default epsilon (parity-critical).
+# torch nn.InstanceNorm2d and nn.BatchNorm{1,2}d default epsilon (parity-critical).
 INSTANCE_NORM_EPS = 1e-5
+BATCH_NORM_EPS = 1e-5
 
 
 def _channels(v: torch.Tensor) -> torch.Tensor:
@@ -112,3 +114,24 @@ def instance_norm_act(
     as one function, whose backward recomputes the ReLU mask; the
     TransformerNet runs every norm through it."""
     return _InstanceNormFunction.apply(x, scale, bias, relu, eps)
+
+
+def batch_norm_inference(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    eps: float = BATCH_NORM_EPS,
+) -> torch.Tensor:
+    """Batch norm on frozen running statistics: ``x * inv + (beta - mean * inv)``.
+
+    The reference runs its ResNet-50 classifier in ``eval()`` only
+    (train_cnn.py:158, inference.py:62), so this is the one BN form the port
+    needs until the classifier itself is trained. Works on NCHW (any memory
+    format; the output keeps x's) and on NC; computed in x's dtype, as JAX's.
+    Plain autograd gives the data gradient.
+    """
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    inv = torch.rsqrt(running_var + eps) * scale
+    return x * inv.view(shape) + (bias - running_mean * inv).view(shape)

@@ -1,4 +1,5 @@
-"""Training: ``train()`` for the Gram modes, its loop, targets and checkpoints; Gatys."""
+"""Training: ``train()`` for the Gram modes and the classifier mode, its loop, targets and
+checkpoints; Gatys."""
 
 from artist_style_transfer_tpu_torch.train.api import train, train_from_config
 

@@ -5,9 +5,10 @@ style_method, artist, num_epochs, batch_size, content_data_size, seed,
 num_steps, content_weight, style_weight, lr, save_every; then the JAX
 package's keyword-only extensions, and ``device``.
 
-Flow: seed -> init TransformerNet -> VGG16 -> content corpus to the device
--> style targets (through the Hopper Gram kernel on CUDA) -> content relu2_2
-once -> one eager epoch at a time -> checkpoints, ``.npz`` and ``.pth``.
+Flow: seed -> init TransformerNet -> VGG16 (+ the ResNet-50 classifier in
+'classifier' mode) -> content corpus to the device -> style targets (through
+the Hopper Gram kernel on CUDA; labels in 'classifier' mode) -> content
+relu2_2 once -> one eager epoch at a time -> checkpoints, ``.npz`` and ``.pth``.
 
 Data comes through the in-memory hooks (``content_images``, ``paintings``,
 ``avg_image``): the JPEG/pickle data pipeline, and with it the training CLI,
@@ -25,6 +26,11 @@ import time
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.models.resnet import (
+    ARTISTS_19,
+    ResNet50Classifier,
+    load_classifier,
+)
 from artist_style_transfer_tpu_torch.models.transformer import init_transformer
 from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, load_vgg16
 from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
@@ -35,27 +41,23 @@ from artist_style_transfer_tpu_torch.train.loop import (
     precompute_content_relu2_2,
 )
 from artist_style_transfer_tpu_torch.train.styles import MODES, build_style_targets
-from artist_style_transfer_tpu_torch.utils.device import resolve_device
+from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 
 _DATA_SLICE = "the port's data-pipeline slice (ROADMAP Queue 1 item 7)"
 _INT8_SLICE = "the port's int8 slice (ROADMAP Queue 1 item 10)"
 _OPTIONS_SLICE = "a later slice of the port (ROADMAP Queue 1 item 6)"
-_CLASSIFIER_SLICE = "the port's classifier slice (ROADMAP Queue 1 item 8)"
 
-# The file loaders' and the classifier mode's arguments, at their defaults. The
-# in-memory hooks replace the loaders, so any other value would be ignored:
-# it is refused instead.
+# The file loaders' arguments, at their defaults. The in-memory hooks replace
+# the loaders, so any other value would be ignored: it is refused instead.
 _LOADER_DEFAULTS = dict(train_size=224, content_dir="images/content/",
                         archive_dir="images/archive/", cache_dir="dicts/")
-_CLASSIFIER_DEFAULTS = dict(classifier_path="models/best-2.pth", reference_typo_stats=False)
 
 
-def _refuse_unported(style_method, *, mesh, content_stream, qat, quantize_loss, quantize_gram,
+def _refuse_unported(*, mesh, content_stream, qat, quantize_loss, quantize_gram,
                      fold_batch, remat, preview_every, profile_dir, content_images, paintings,
-                     avg_image, loader_args, classifier_args) -> None:
+                     avg_image, style_method, loader_args) -> None:
     checks = (
-        (style_method == "classifier", f"style_method='classifier' comes with {_CLASSIFIER_SLICE}"),
         (mesh is not None, "mesh (data-parallel training) comes with the port's parallel slice "
                            "(ROADMAP Queue 1 item 12)"),
         (content_stream is not None, f"content_stream comes with {_DATA_SLICE}"),
@@ -75,26 +77,24 @@ def _refuse_unported(style_method, *, mesh, content_stream, qat, quantize_loss, 
          f"pass avg_image: loading the artist's mean image comes with {_DATA_SLICE}"),
         *((loader_args[k] != v, f"{k}={loader_args[k]!r} serves the file loaders, which come "
                                 f"with {_DATA_SLICE}") for k, v in _LOADER_DEFAULTS.items()),
-        *((classifier_args[k] != v, f"{k}={classifier_args[k]!r} serves the classifier mode, "
-                                    f"which comes with {_CLASSIFIER_SLICE}")
-          for k, v in _CLASSIFIER_DEFAULTS.items()),
     )
     for refused, why in checks:
         if refused:
             raise NotImplementedError(why)
 
 
-def _resolve_vgg(vgg, vgg_path: str, dev: torch.device) -> VGG16Features:
-    """A ``VGG16Features`` on ``dev`` from the hook (a module or its state dict) or the file."""
-    if vgg is None:
-        return load_vgg16(vgg_path, dev)
-    if isinstance(vgg, dict):
-        model = VGG16Features()
-        model.load_state_dict(vgg)
+def _resolve_frozen(net, cls, load, path: str, dev: torch.device) -> torch.nn.Module:
+    """A frozen ``cls`` net on ``dev`` from the hook (a module or its state dict) or, when
+    the hook is None, ``load(path, dev)``."""
+    if net is None:
+        return load(path, dev)
+    if isinstance(net, dict):
+        model = cls()
+        model.load_state_dict(net)
         return model.to(dev)
-    if next(vgg.parameters()).device != dev:
-        vgg = copy.deepcopy(vgg).to(dev)  # the caller's module stays where it is
-    return vgg
+    if not same_device(next(net.parameters()).device, dev):
+        net = copy.deepcopy(net).to(dev)  # the caller's module stays where it is
+    return net
 
 
 def train(
@@ -130,6 +130,7 @@ def train(
     paintings: np.ndarray | None = None,  # (P, H, W, 3) BGR [0,255]
     avg_image: np.ndarray | None = None,  # (H, W, 3) BGR [0,255]
     vgg: VGG16Features | dict | None = None,  # else loaded from vgg_path
+    classifier: ResNet50Classifier | dict | None = None,  # else loaded from classifier_path
     use_kernel: str | bool = "auto",
     compute_dtype: str = "float32",
     fold_batch: str | bool = "auto",
@@ -151,21 +152,24 @@ def train(
     The corpus is the first ``content_data_size`` of ``content_images``, as
     the reference draws that many (train_cnn.py:168). ``train_size``,
     ``content_dir``, ``archive_dir`` and ``cache_dir`` serve the file loaders,
-    ``classifier_path`` and ``reference_typo_stats`` the classifier mode; both
-    come with later slices, and a value other than the default raises.
+    which come with a later slice; a value other than the default raises.
+    'classifier' mode takes the frozen classifier from ``classifier`` or, when
+    that is None, from ``classifier_path``; ``artist`` must be one of
+    :data:`ARTISTS_19` (else ``ValueError``), and ``reference_typo_stats``
+    takes the reference training path's 0.546 G mean (train_cnn.py:272).
     """
     if style_method not in MODES:
         print("enter valid style method!")  # train_cnn.py:274
         return 0
-    _refuse_unported(style_method, mesh=mesh, content_stream=content_stream, qat=qat,
+    _refuse_unported(mesh=mesh, content_stream=content_stream, qat=qat,
                      quantize_loss=quantize_loss, quantize_gram=quantize_gram,
                      fold_batch=fold_batch, remat=remat, preview_every=preview_every,
                      profile_dir=profile_dir, content_images=content_images,
-                     paintings=paintings, avg_image=avg_image,
+                     paintings=paintings, avg_image=avg_image, style_method=style_method,
                      loader_args=dict(train_size=train_size, content_dir=content_dir,
-                                      archive_dir=archive_dir, cache_dir=cache_dir),
-                     classifier_args=dict(classifier_path=classifier_path,
-                                          reference_typo_stats=reference_typo_stats))
+                                      archive_dir=archive_dir, cache_dir=cache_dir))
+    # Before anything is written: an artist outside the classifier's 19 raises.
+    artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)
 
     # The reference seeds every RNG (train_cnn.py:147-151).
@@ -191,7 +195,10 @@ def train(
     )
 
     model = init_transformer(torch.Generator().manual_seed(seed), dev)
-    vgg = _resolve_vgg(vgg, vgg_path, dev)
+    vgg = _resolve_frozen(vgg, VGG16Features, load_vgg16, vgg_path, dev)
+    classifier = (_resolve_frozen(classifier, ResNet50Classifier, load_classifier,
+                                  classifier_path, dev)
+                  if style_method == "classifier" else None)
     content_data = torch.as_tensor(np.asarray(content_images[:content_data_size], np.float32),
                                    device=dev)
     n_content = content_data.shape[0]
@@ -200,8 +207,8 @@ def train(
         print("Getting style dataset and features!")  # train_cnn.py:180
     t0 = time.perf_counter()
     targets = build_style_targets(style_method, vgg, artist, paintings=paintings,
-                                  avg_image=avg_image, batch_size=batch_size, rng=nprng,
-                                  use_kernel=use_kernel)
+                                  avg_image=avg_image, batch_size=batch_size,
+                                  artist_index=artist_index, rng=nprng, use_kernel=use_kernel)
     log.log("style_targets_built", mode=style_method, secs=time.perf_counter() - t0)
     if prefix is not None and targets.style_preview_bgr is not None:
         _save_style_jpg(os.path.dirname(prefix), targets.style_preview_bgr,
@@ -215,7 +222,9 @@ def train(
     fns = make_step_fns(style_method, model, vgg, targets, opt, sched,
                         content_weight=content_weight, style_weight=style_weight,
                         batch_size=batch_size, num_content=n_content, use_kernel=use_kernel,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype,
+                        classifier=classifier,
+                        reference_typo_stats=reference_typo_stats)
     content_r22 = precompute_content_relu2_2(
         vgg, content_data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
 
@@ -316,6 +325,8 @@ def train_from_config(config, **overrides):
         model_dir=config.model_dir,
         compute_dtype=config.compute_dtype,
         log_every_batches=config.log_every_batches,
+        classifier_path=config.classifier_path,
+        reference_typo_stats=config.reference_typo_stats,
         device=config.device,
     )
     kwargs.update(overrides)

@@ -18,12 +18,16 @@ What carries over from the JAX loop, and what changes:
   takes its permutation as an argument, as JAX's does;
   :func:`epoch_permutation` is the port's own, keyed on (seed, epoch).
 - ``compute_dtype="bfloat16"`` casts the params, the batch and a copy of the
-  VGG weights to bf16 inside the step (``torch.func.functional_call``), so
-  the master weights, Adam's state and the gradients stay f32, and the
-  losses are reduced in f32.
+  VGG weights (and of the classifier's, BN statistics included) to bf16
+  inside the step (``torch.func.functional_call``), so the master weights,
+  Adam's state and the gradients stay f32, and the losses are reduced in f32.
 
-Every Gram of the step goes through :func:`ops.losses.style_loss_gram`,
-which runs the Hopper Gram kernel on a CUDA device: four launches a step.
+In the Gram modes every Gram of the step goes through
+:func:`ops.losses.style_loss_gram`, which runs the Hopper Gram kernel on a
+CUDA device: four launches a step. The 'classifier' mode computes no Gram:
+the VGG stops at relu2_2 for the content loss, and the style term is the
+cross-entropy of the frozen ResNet-50 classifier on the generated batch
+(train_cnn.py:309-314), whose weights get no gradient.
 """
 
 from __future__ import annotations
@@ -36,10 +40,19 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
 from artist_style_transfer_tpu_torch.models.vgg import VGG16Features
-from artist_style_transfer_tpu_torch.ops.image import vgg_caffe_preprocess
-from artist_style_transfer_tpu_torch.ops.losses import content_loss, style_loss_gram
+from artist_style_transfer_tpu_torch.ops.image import (
+    bgr_to_rgb,
+    torchvision_normalize,
+    vgg_caffe_preprocess,
+)
+from artist_style_transfer_tpu_torch.ops.losses import (
+    content_loss,
+    cross_entropy_loss,
+    style_loss_gram,
+)
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,7 +84,8 @@ def make_optimizer(
 class StepFns:
     """The loss, one optimizer step, and one epoch for one configuration."""
 
-    # (params {name: tensor}, batch, content_r22, grams, step) -> (total, (content, style))
+    # (params {name: tensor}, batch, content_r22, grams, step) -> (total, (content, style));
+    # 'classifier' takes its labels from the targets and ignores grams
     loss_fn: Callable
     # (batch, content_r22, step) -> (3,) [content, style, total] on the device
     step_fn: Callable
@@ -94,16 +108,18 @@ def make_step_fns(
     num_content: int,
     use_kernel: str | bool = "auto",
     compute_dtype: str = "float32",
+    classifier: ResNet50Classifier | None = None,
+    reference_typo_stats: bool = False,
 ) -> StepFns:
-    """Build the step functions of a Gram-mode training run.
+    """Build the step functions of a training run.
 
-    ``model`` and ``vgg`` live on the training device; the step updates
-    ``model``'s parameters in place through ``optimizer`` and ``scheduler``.
+    ``model``, ``vgg`` and, for 'classifier', ``classifier`` live on the
+    training device; the step updates ``model``'s parameters in place through
+    ``optimizer`` and ``scheduler``. ``reference_typo_stats`` normalizes the
+    classifier's input with the reference training path's 0.546 G mean.
     """
-    if mode == "classifier":
-        raise NotImplementedError(
-            "'classifier' training comes with the port's classifier slice (ROADMAP Queue 1 item 8)"
-        )
+    if mode == "classifier" and (classifier is None or targets.labels is None):
+        raise ValueError("'classifier' training needs a classifier and the targets' labels")
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got {compute_dtype!r}")
     steps_full = num_content // batch_size
@@ -113,6 +129,9 @@ def make_step_fns(
     cdtype = COMPUTE_DTYPES[compute_dtype]
     # The frozen VGG is cast once, like JAX's vgg_compute; its weights get no gradient.
     vgg_compute = vgg if cdtype == torch.float32 else copy.deepcopy(vgg).to(cdtype)
+    # The frozen classifier likewise, BN statistics included, as JAX casts its pytree.
+    clf_compute = (classifier if classifier is None or cdtype == torch.float32
+                   else copy.deepcopy(classifier).to(cdtype))
     num_cycle = targets.num_cycle if mode == "cycle" else 0
 
     def loss_fn(params, batch, content_r22, grams, step):
@@ -120,11 +139,20 @@ def make_step_fns(
             params = {k: v.to(cdtype) for k, v in params.items()}
             batch = batch.to(cdtype)
         gen = functional_call(model, params, (batch,))
-        feats = vgg_compute(vgg_caffe_preprocess(gen))
-        c_loss = content_weight * content_loss(feats["relu2_2"], content_r22)
-        s_loss = style_weight * style_loss_gram(
-            feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel
-        )
+        if mode == "classifier":
+            # relu2_2 alone for the content loss (train_cnn.py:64-68); BGR [0,255] ->
+            # RGB [0,1] -> torchvision stats for the classifier (train_cnn.py:312).
+            gen_r22 = vgg_compute(vgg_caffe_preprocess(gen), just_content=True)
+            logits = clf_compute(torchvision_normalize(bgr_to_rgb(gen) / 255.0,
+                                                       reference_typo_stats))
+            s_loss = style_weight * cross_entropy_loss(logits, targets.labels[: batch.shape[0]])
+        else:
+            feats = vgg_compute(vgg_caffe_preprocess(gen))
+            gen_r22 = feats["relu2_2"]
+            s_loss = style_weight * style_loss_gram(
+                feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel
+            )
+        c_loss = content_weight * content_loss(gen_r22, content_r22)
         return c_loss + s_loss, (c_loss, s_loss)
 
     params = dict(model.named_parameters())

@@ -1,4 +1,4 @@
-"""Style targets for the Gram training modes (counterpart of the JAX
+"""Style targets for the training modes (counterpart of the JAX
 ``train/styles.py``; reference train_cnn.py:172-275).
 
 Each builder returns a ``StyleTargets`` whose tensors live on the VGG's
@@ -10,12 +10,13 @@ device for the whole run:
                  and indexed by ``step % P``                   (train_cnn.py:206-223)
 - 'smartaverage' mean of raw VGG *features* over the corpus,
                  then one Gram                                 (train_cnn.py:224-244)
+- 'classifier'   no Grams: the artist's class index for each
+                 batch row, the classifier loss's labels       (train_cnn.py:260-272)
 
 Every Gram goes through :func:`ops.gram.gram_matrix`, so on a CUDA device
 the targets run the Hopper Gram kernel: four launches per image for
 'random' and 'average', four per chunk of at most ``chunk`` paintings for
-'cycle', four in all for 'smartaverage'. 'classifier' needs the ResNet-50
-artist classifier, which the port's classifier slice brings.
+'cycle', four in all for 'smartaverage', none for 'classifier'.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
 from artist_style_transfer_tpu_torch.models.vgg import VGG_LAYER_NAMES, VGG16Features
 from artist_style_transfer_tpu_torch.ops.gram import gram_matrix
 from artist_style_transfer_tpu_torch.ops.image import vgg_caffe_preprocess
@@ -40,6 +42,7 @@ class StyleTargets:
     # {tap: (C, C)} — or for 'cycle': {tap: (P, C, C)}.
     grams: dict[str, torch.Tensor] | None = None
     num_cycle: int = 0  # P for 'cycle', else 0
+    labels: torch.Tensor | None = None  # 'classifier': (batch_size,) int64 artist index
     style_preview_bgr: np.ndarray | None = None  # HWC [0,255] for style.jpg
 
     def gram_for_step(self, step: int) -> dict[str, torch.Tensor]:
@@ -94,16 +97,17 @@ def build_style_targets(
     target broadcast against the generated batch's (B, C, C) Grams gives the
     identical MSE (the mean runs over B*C*C either way), so targets are
     stored un-expanded. ``batch_size`` and ``artist_index`` serve only the
-    'classifier' mode.
+    'classifier' mode, whose labels are ``artist_index``, else the index of
+    ``artist`` in :data:`ARTISTS_19` (an unknown artist raises ``ValueError``).
     """
-    del artist, batch_size, artist_index
     if mode not in MODES:
         raise ValueError(f"enter valid style method! got {mode!r}")  # train_cnn.py:274
     if mode == "classifier":
-        raise NotImplementedError(
-            "'classifier' style targets need the ResNet-50 artist classifier, which comes "
-            "with the port's classifier slice (ROADMAP Queue 1 item 8)"
-        )
+        if artist_index is None:
+            artist_index = ARTISTS_19.index(artist)
+        labels = torch.full((batch_size,), artist_index, dtype=torch.int64,
+                            device=next(vgg.parameters()).device)
+        return StyleTargets(mode=mode, labels=labels)
 
     if mode == "average":
         if avg_image is None:

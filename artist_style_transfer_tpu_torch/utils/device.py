@@ -17,3 +17,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Device equality where a CUDA device without an index means the current one."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)

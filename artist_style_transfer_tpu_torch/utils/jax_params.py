@@ -10,7 +10,7 @@ nor the JAX package.
 Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
 weights are *spatially flipped* HWIO (the importer flips once so the
 transpose conv runs as a dilated conv); they become torch's unflipped
-(I, O, kH, kW).
+(I, O, kH, kW). JAX dense weights are (I, O) and become (O, I).
 """
 
 from __future__ import annotations
@@ -103,4 +103,43 @@ def vgg16_state_dict_from_jax(params: list[dict]) -> dict[str, torch.Tensor]:
     for (idx, _, _), p in zip(VGG_CONVS, params, strict=True):
         sd[f"features.{idx}.weight"] = _conv_w(p["w"])
         sd[f"features.{idx}.bias"] = _t(p["b"])
+    return sd
+
+
+def classifier_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ResNet-50 classifier pytree -> reference ``ArtistClassifier`` state dict.
+
+    The inverse of JAX ``classifier_params_from_torch``, in the layout of JAX
+    ``classifier_params_to_torch`` (``utils/torch_import.py:193-236``): OIHW
+    convs, (O, I) dense weights, and each BN's ``num_batches_tracked`` at 0,
+    so a strict ``load_state_dict`` takes it.
+    """
+    sd: dict[str, torch.Tensor] = {}
+
+    def put_bn(prefix: str, p: dict) -> None:
+        for key, name in (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+                          ("var", "running_var")):
+            sd[f"{prefix}.{name}"] = _t(p[key])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def put_dense(prefix: str, p: dict) -> None:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+    sd["0.0.weight"] = _conv_w(params["stem"]["conv"]["w"])
+    put_bn("0.1", params["stem"]["bn"])
+    for s_i, stage in enumerate(params["stages"]):
+        for b, block in enumerate(stage):
+            pre = f"0.{4 + s_i}.{b}"
+            for i in (1, 2, 3):
+                sd[f"{pre}.conv{i}.weight"] = _conv_w(block[f"conv{i}"]["w"])
+                put_bn(f"{pre}.bn{i}", block[f"bn{i}"])
+            if "down_conv" in block:
+                sd[f"{pre}.downsample.0.weight"] = _conv_w(block["down_conv"]["w"])
+                put_bn(f"{pre}.downsample.1", block["down_bn"])
+    head = params["head"]
+    put_bn("1.2", head["bn1"])
+    put_dense("1.4", head["fc1"])
+    put_bn("1.6", head["bn2"])
+    put_dense("1.8", head["fc2"])
     return sd

@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py             # every phase, one card
     python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
-                                      # batch, 4 training steps
+                                      # batch, 4 'cycle' training steps, an eval batch,
+                                      # 4 'classifier' training steps
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -32,10 +33,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    launches (counter zeroed just before), the exported ``.pth`` and ``.npz``
    reloaded and run; 3 steps with the kernel against 3 without (per-step
    losses within 1e-4); the FLOPs of one step (``FlopCounterMode``) and its
-   bound by the rule of the Gram's (FP32 or 3xTF32, whichever is faster); one epoch with ``compute_dtype="bfloat16"``;
+   bound by the rule of the Gram's (FP32 or 3xTF32, whichever is faster); one epoch with
+   ``compute_dtype="bfloat16"`` (20 kernel launches) and a warm bf16 ms/step;
    ms/step and images/s of epochs 2-3 (host clock, each epoch ends in a
    sync) and peak memory;
-6. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+6. classifier: the seeded ResNet-50 artist classifier (random BN running
+   statistics) at 256x256, B=4, f32: logits and features on the card against
+   the same module on the CPU (within 1e-3 of the largest magnitude, same
+   argmax), ms a batch by CUDA events, the FLOPs of a forward and their bound;
+7. eval: ``evaluate_with_classifier`` at the reference's eval defaults, the
+   committed golden TransformerNet and the seeded classifier (saved as
+   fastai's ``{'model': sd}`` and read back by ``load_classifier``), both
+   on the default device, on 16 seeded
+   uint8 1024x1024 images, crop 256, B=4: images/s and ms/image (host clock,
+   after one warm-up batch), the accuracy, peak memory, no kernel launch
+   (counter zeroed just before), and the predictions of 2 images against the
+   port's CPU result (skipped where the CPU's top-2 margin is under 1e-3 of
+   max|logit|); then, where cv2 is installed, the ``inference.py
+   --no-display`` CLI on 4 seeded JPEGs, whose ``Acc=`` must equal a direct
+   call's;
+8. train_classifier: 'classifier' training through ``train()`` at 224x224,
+   B=4, 16 seeded content images, 3 epochs, f32, seeded VGG16 and classifier:
+   finite per-step losses, epoch 3's total below epoch 1's, 0 kernel launches,
+   no ``.grad`` on a VGG or classifier parameter, the ``.pth`` export reloaded
+   and run; ms/step and images/s of epochs 2-3, peak memory, the step's FLOPs
+   and bound; one bf16 epoch (finite) and a warm bf16 ms/step;
+9. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor cv2 or PIL. Without CUDA, or
 without the port's package beside it, it exits non-zero and prints no
@@ -79,6 +102,15 @@ TRAIN_BATCH = 4
 TRAIN_CONTENT = 16
 TRAIN_PAINTINGS = 8
 TRAIN_EPOCHS = 3
+# The classifier paths: the reference eval transform's crop (inference.py:56-59), its
+# resize_size and batch (InferenceConfig), and the 'classifier' train artist.
+CLF_SIZE = 256
+CLF_BATCH = 4
+EVAL_SIZE = 1024
+EVAL_IMAGES = 16
+EVAL_CPU_IMAGES = 2
+EVAL_CLI_IMAGES = 4
+CLF_ARTIST = "Pablo_Picasso"
 
 
 def emit(phase: str, **fields) -> None:
@@ -230,6 +262,7 @@ def phase_gram(peaks: dict) -> dict:
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
     main = dict.fromkeys(keys, 0.0)  # the 4 taps of a Gatys step (256², N=1, f32)
     train = dict.fromkeys(keys, 0.0)  # the 4 taps of a train step (224², N=4, f32)
+    train_bf16 = dict.fromkeys(keys, 0.0)  # the same in bf16, the bf16 train step's
     for size, n in ((GATYS_SIZE, 1), (TRAIN_SIZE, TRAIN_BATCH), (512, 4)):
         for tap, down, c in TAPS:
             hw = (size // down) ** 2
@@ -291,12 +324,14 @@ def phase_gram(peaks: dict) -> dict:
                      bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
                      bound_share=bound_ms / kernel_dev, gflop=flops / 1e9,
                      kernel_tflops=flops / kernel_dev / 1e9)
-                sums = {GATYS_SIZE: main, TRAIN_SIZE: train}.get(size)
-                if sums is not None and dtype == torch.float32:
+                sums = {(GATYS_SIZE, torch.float32): main, (TRAIN_SIZE, torch.float32): train,
+                        (TRAIN_SIZE, torch.bfloat16): train_bf16}.get((size, dtype))
+                if sums is not None:
                     for k, v in zip(keys, (kernel_ms, kernel_dev, plain_ms, library_ms,
                                            bound_ms, t_ops, t_bytes)):
                         sums[k] += v
-    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main, "train_taps": train}
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main, "train_taps": train,
+            "train_taps_bf16": train_bf16}
 
 
 def phase_stylize() -> None:
@@ -379,8 +414,10 @@ def train_data(size: int = TRAIN_SIZE) -> tuple[np.ndarray, np.ndarray]:
     return content, paintings
 
 
-def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray, use_kernel, device: str):
-    """'cycle' step functions from ``init_transformer`` seed 0, and the corpus on ``device``."""
+def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray | None, use_kernel,
+                   device: str, compute_dtype: str = "float32", classifier=None):
+    """Step functions from ``init_transformer`` seed 0, and the corpus on ``device``:
+    'cycle', or 'classifier' when a classifier is given."""
     from artist_style_transfer_tpu_torch.models.transformer import init_transformer
     from artist_style_transfer_tpu_torch.train.loop import (
         make_optimizer,
@@ -389,16 +426,46 @@ def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray, use_kernel, 
     )
     from artist_style_transfer_tpu_torch.train.styles import build_style_targets
 
+    mode = "cycle" if classifier is None else "classifier"
     model = init_transformer(torch.Generator().manual_seed(0), device)
-    targets = build_style_targets("cycle", vgg, "Seeded", paintings=paintings,
-                                  use_kernel=use_kernel)
+    targets = build_style_targets(mode, vgg, CLF_ARTIST, paintings=paintings,
+                                  batch_size=TRAIN_BATCH, use_kernel=use_kernel)
     steps = -(-len(content) // TRAIN_BATCH)
     opt, sched = make_optimizer(model.parameters(), 0.0024, 1e-4, TRAIN_EPOCHS, 2, steps)
-    fns = make_step_fns("cycle", model, vgg, targets, opt, sched, content_weight=17.0,
+    fns = make_step_fns(mode, model, vgg, targets, opt, sched, content_weight=17.0,
                         style_weight=25.0, batch_size=TRAIN_BATCH, num_content=len(content),
-                        use_kernel=use_kernel)
+                        use_kernel=use_kernel, compute_dtype=compute_dtype,
+                        classifier=classifier)
     data = torch.as_tensor(content, device=device)
-    return fns, data, precompute_content_relu2_2(vgg, data)
+    r22 = precompute_content_relu2_2(
+        vgg, data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
+    return fns, data, r22
+
+
+def warm_ms_per_step(fns, data: torch.Tensor, r22: torch.Tensor, epochs: int = 2) -> float:
+    """ms a step over ``epochs`` epochs after a warm-up one (cuDNN's algorithm choice and
+    first calls); host clock, ending in a sync."""
+    perm = torch.arange(len(data))
+    fns.epoch_fn(data, r22, perm, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(1, epochs + 1):
+        fns.epoch_fn(data, r22, perm, e * fns.steps_per_epoch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (epochs * fns.steps_per_epoch)
+
+
+def step_flops_and_bound(fns, data: torch.Tensor, r22: torch.Tensor, peaks: dict):
+    """The FLOPs of one step as ``FlopCounterMode`` counts them (convs forward, dgrad and,
+    where a weight trains, wgrad; matmuls), and their bound at f32 accuracy, as
+    ``gram_bound`` counts K1's: FP32 on the CUDA cores or 3xTF32 on the tensor cores,
+    whichever is faster. The step's bytes weigh far less."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fns.step_fn(data[:TRAIN_BATCH], r22[:TRAIN_BATCH], 0)
+    flops = counter.get_total_flops()
+    return flops, min(flops / peaks["fp32"], 3 * flops / peaks["tf32"]) * 1e3
 
 
 def read_jsonl(path: str) -> list[dict]:
@@ -412,8 +479,6 @@ def phase_train(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> tu
 
     Returns the kernel launches of the f32 main path and of the bf16 epoch.
     """
-    from torch.utils.flop_counter import FlopCounterMode
-
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
     from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
@@ -477,13 +542,7 @@ def phase_train(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> tu
         trace_rel = ((traces[0] - traces[1]).abs() / traces[1].abs()).max().item()
         require(trace_rel <= 1e-4, f"train 3-step losses kernel vs plain: rel {trace_rel}")
 
-        # The step's bound: its counted FLOPs (convs fwd, dgrad and wgrad; matmuls) at
-        # f32 accuracy, as gram_bound counts K1's: FP32 on the CUDA cores or 3xTF32 on
-        # the tensor cores, whichever is faster; its bytes weigh far less.
-        with FlopCounterMode(display=False) as counter:
-            fns.step_fn(data[:TRAIN_BATCH], r22[:TRAIN_BATCH], 0)
-        step_flops = counter.get_total_flops()
-        step_bound_ms = min(step_flops / peaks["fp32"], 3 * step_flops / peaks["tf32"]) * 1e3
+        step_flops, step_bound_ms = step_flops_and_bound(fns, data, r22, peaks)
 
         # One epoch in bf16: K1's bf16 route on the train path.
         gram_kernel.LAUNCHES = 0
@@ -495,6 +554,8 @@ def phase_train(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> tu
         require(bool(np.isfinite(bf16_losses).all()), "train bf16: a loss is not finite")
         require(bf16_launches == 4 + 4 * steps_per_epoch,
                 f"train bf16: gram launches {bf16_launches} != {4 + 4 * steps_per_epoch}")
+        bf16_ms = warm_ms_per_step(*train_step_fns(vgg, content, paintings, "auto", device,
+                                                   compute_dtype="bfloat16"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("train", mode="cycle", size=size, batch=TRAIN_BATCH, content=TRAIN_CONTENT,
@@ -507,8 +568,252 @@ def phase_train(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> tu
          peak_mem_gib=peak_gib,
          reload_max_abs_diff=reload_db, kernel_vs_plain_step_rel=trace_rel,
          bf16_epoch_losses=bf16_losses.tolist(), bf16_gram_launches=bf16_launches,
-         bf16_seconds=bf16_seconds)
+         bf16_seconds=bf16_seconds, bf16_ms_per_step_warm=bf16_ms)
     return launches, bf16_launches
+
+
+def seeded_classifier(device: str):
+    """The ResNet-50 artist classifier from ``init_classifier`` seed 0, with random BN
+    running statistics (fresh BN's mean 0 / var 1 would hide a statistics bug), as the
+    tests' ``randomize_bn_stats`` draws them."""
+    from artist_style_transfer_tpu_torch.models.resnet import init_classifier
+
+    model = init_classifier(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.5)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 2.0 + 0.5)
+    return model.to(device)
+
+
+def rel_to_max(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.double().cpu() - ref.double().cpu()).abs().max() / ref.abs().max()).item()
+
+
+def phase_classifier(peaks: dict) -> None:
+    """The classifier on the card against the same module on the CPU, f32 parity mode."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gpu, cpu = seeded_classifier("cuda"), seeded_classifier("cpu")
+    x = torch.randn((CLF_BATCH, CLF_SIZE, CLF_SIZE, 3), generator=torch.Generator().manual_seed(3))
+    xg = x.cuda()
+    with torch.inference_mode():
+        logits, feats = gpu(xg), gpu(xg, return_features=True)
+        logits_cpu, feats_cpu = cpu(x), cpu(x, return_features=True)
+        ms = time_ms(lambda: gpu(xg), iters=10)
+    with FlopCounterMode(display=False) as counter:
+        with torch.inference_mode():
+            gpu(xg)
+    flops = counter.get_total_flops()
+    bound_ms = min(flops / peaks["fp32"], 3 * flops / peaks["tf32"]) * 1e3
+    logit_rel, feat_rel = rel_to_max(logits, logits_cpu), rel_to_max(feats, feats_cpu)
+    argmax, argmax_cpu = logits.argmax(-1).tolist(), logits_cpu.argmax(-1).tolist()
+    require(tuple(logits.shape) == (CLF_BATCH, 19) and bool(torch.isfinite(logits).all()),
+            f"classifier logits {tuple(logits.shape)}")
+    require(logit_rel <= 1e-3, f"classifier card vs CPU logits: rel {logit_rel}")
+    require(feat_rel <= 1e-3, f"classifier card vs CPU features: rel {feat_rel}")
+    require(argmax == argmax_cpu, f"classifier argmax {argmax} vs CPU {argmax_cpu}")
+    emit("classifier", size=CLF_SIZE, batch=CLF_BATCH,
+         params=sum(p.numel() for p in gpu.parameters()), card_vs_cpu_logits_rel=logit_rel,
+         card_vs_cpu_features_rel=feat_rel, argmax=argmax, max_abs_logit=logits.abs().max().item(),
+         ms_per_batch=ms, gflop=flops / 1e9, bound_ms=bound_ms, bound_share=bound_ms / ms)
+
+
+def eval_data() -> list[np.ndarray]:
+    """Seeded uint8 BGR images at the reference eval's resize_size."""
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, 256, (EVAL_SIZE, EVAL_SIZE, 3), dtype=np.uint8)
+            for _ in range(EVAL_IMAGES)]
+
+
+def phase_eval() -> int:
+    """``evaluate_with_classifier`` at the reference eval defaults; returns its K1 launches."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19, load_classifier
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+
+    pth = os.path.join(GOLDENS, "golden_transfer.pth")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # Both nets load as the CLI loads them, from the reference file layouts, onto
+        # the default device (CUDA); the classifier from a fastai-style {'model': sd}.
+        clf_path = os.path.join(tmp, "best-2.pth")
+        torch.save({"model": seeded_classifier("cpu").state_dict()}, clf_path)
+        model, clf = load_transfer_params(pth), load_classifier(clf_path)
+        require(next(clf.parameters()).is_cuda, "eval: load_classifier did not default to CUDA")
+        images = eval_data()
+        artist = ARTISTS_19.index(CLF_ARTIST)
+        kw = dict(batch_size=CLF_BATCH, wordy=False)
+        evaluate_with_classifier(model, clf, images[:CLF_BATCH], artist, **kw)  # warm-up batch
+
+        # The main path: counter zeroed just before, read just after.
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        acc = evaluate_with_classifier(model, clf, images, artist, **kw)
+        seconds = time.perf_counter() - t0
+        launches = gram_kernel.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        cli = eval_cli(tmp, pth, clf_path, model, clf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The pipeline's predictions, batch by batch, give its accuracy.
+    logits = torch.cat([eval_logits(model, clf, torch.as_tensor(np.stack(images[i:i + CLF_BATCH]),
+                                                                 device="cuda")).cpu()
+                        for i in range(0, EVAL_IMAGES, CLF_BATCH)])
+    preds = logits.argmax(-1)
+    require(bool(torch.isfinite(logits).all()), "eval: logits not finite")
+    require(acc == round(100.0 * (preds == artist).sum().item() / EVAL_IMAGES, 2),
+            f"eval: accuracy {acc} is not that of the predictions {preds.tolist()}")
+    require(launches == 0, f"eval: {launches} gram launches on a path with no Gram")
+
+    # Against the port's CPU result on EVAL_CPU_IMAGES images; a top-2 margin under
+    # 1e-3 of max|logit| is within the two devices' rounding and is not compared.
+    cpu_logits = eval_logits(load_transfer_params(pth, device="cpu"), seeded_classifier("cpu"),
+                             torch.as_tensor(np.stack(images[:EVAL_CPU_IMAGES])))
+    top2 = cpu_logits.topk(2, dim=-1).values
+    margins = ((top2[:, 0] - top2[:, 1]) / cpu_logits.abs().max()).tolist()
+    compared = [i for i, m in enumerate(margins) if m >= 1e-3]
+    cpu_preds = cpu_logits.argmax(-1).tolist()
+    require(all(cpu_preds[i] == preds[i].item() for i in compared),
+            f"eval: card predictions {preds[:EVAL_CPU_IMAGES].tolist()} vs CPU {cpu_preds}")
+    emit("eval", images=EVAL_IMAGES, size=EVAL_SIZE, crop=CLF_SIZE, batch=CLF_BATCH,
+         accuracy=acc, preds=preds.tolist(), seconds=seconds,
+         images_per_sec=EVAL_IMAGES / seconds, ms_per_image=seconds * 1e3 / EVAL_IMAGES,
+         peak_mem_gib=peak_gib, gram_launches=launches, cpu_preds=cpu_preds,
+         cpu_top2_margins=margins, cpu_compared=compared,
+         card_vs_cpu_logits_rel=rel_to_max(logits[:EVAL_CPU_IMAGES], cpu_logits), cli=cli)
+    return launches
+
+
+def eval_cli(tmp: str, pth: str, clf_path: str, model, clf) -> dict:
+    """``inference.py --no-display`` on the default device over EVAL_CLI_IMAGES seeded
+    JPEGs, resized to the default 1024²: its ``Acc=`` against ``evaluate_with_classifier``
+    on the same files decoded by cv2, as the CLI decodes them. Skipped where cv2 is
+    missing, since the CLI needs it."""
+    try:
+        import cv2
+    except ImportError:
+        return {"skipped": "no cv2 to decode JPEGs"}
+    import contextlib
+    import io
+
+    from artist_style_transfer_tpu_torch import inference
+    from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
+
+    content = os.path.join(tmp, "content")
+    model_dir = os.path.join(tmp, "models", CLF_ARTIST, "random")
+    os.makedirs(content)
+    os.makedirs(model_dir)
+    shutil.copy(pth, model_dir)
+    rng = np.random.default_rng(5)
+    files = [os.path.join(content, f"c{i}.jpg") for i in range(EVAL_CLI_IMAGES)]
+    for f in files:
+        cv2.imwrite(f, rng.integers(0, 256, (600, 800, 3), dtype=np.uint8))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        acc = inference.main(["--no-display", "--artist", CLF_ARTIST, "--style_method", "random",
+                              "--model_filename", os.path.basename(pth), "--model_dir",
+                              os.path.join(tmp, "models"), "--content_dir", content,
+                              "--classifier_path", clf_path, "--seed", "0"])
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    # The accuracy does not depend on the order the CLI shuffles the files into.
+    direct = evaluate_with_classifier(
+        model, clf, [cv2.resize(cv2.imread(f), (EVAL_SIZE, EVAL_SIZE)) for f in files],
+        ARTISTS_19.index(CLF_ARTIST), batch_size=CLF_BATCH, wordy=False)
+    require(f"Grabbed {EVAL_CLI_IMAGES} images!" in lines and lines[-1] == f"Acc={acc}",
+            f"eval CLI output: {lines[:2]} ... {lines[-1:]}")
+    require(acc == direct, f"eval CLI Acc={acc} vs a direct call's {direct}")
+    return {"images": EVAL_CLI_IMAGES, "accuracy": acc, "direct_accuracy": direct,
+            "seconds": seconds, "cv2": cv2.__version__}
+
+
+def phase_train_classifier(peaks: dict, size: int = TRAIN_SIZE, device: str = "cuda") -> int:
+    """'classifier' training through ``train()``; returns its K1 launches (0)."""
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+    from artist_style_transfer_tpu_torch.train import train
+
+    vgg = init_vgg16(torch.Generator().manual_seed(0), device=device)
+    clf = seeded_classifier(device)
+    content, _ = train_data(size)
+    steps_per_epoch = -(-TRAIN_CONTENT // TRAIN_BATCH)
+    kwargs = dict(batch_size=TRAIN_BATCH, seed=0, num_steps=2, save_every=1,
+                  content_images=content, vgg=vgg, classifier=clf, device=device, wordy=False,
+                  log_every_batches=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_classifier_")
+    try:
+        # The main path: counter zeroed just before, read just after.
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        model, losses = train("classifier", CLF_ARTIST, num_epochs=TRAIN_EPOCHS, model_dir=tmp,
+                              **kwargs)
+        seconds = time.perf_counter() - t0
+        launches = gram_kernel.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        run_dir = os.path.join(tmp, CLF_ARTIST, "classifier")
+        events = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+        steps = np.array([[e["content_loss"], e["style_loss"], e["total_loss"]]
+                          for e in events if e["event"] == "batch"])
+        epochs = [e for e in events if e["event"] == "epoch"]
+        require(steps.shape == (TRAIN_EPOCHS * steps_per_epoch, 3),
+                f"train_classifier: {steps.shape} per-step loss records")
+        require(bool(np.isfinite(steps).all()) and bool(np.isfinite(losses).all()),
+                "train_classifier: a loss is not finite")
+        require(losses[-1, 2] < losses[0, 2],
+                f"train_classifier: epoch {TRAIN_EPOCHS} total {losses[-1, 2]} not below "
+                f"epoch 1's {losses[0, 2]}")
+        require(launches == 0, f"train_classifier: {launches} gram launches on a path with no Gram")
+        frozen = [n for net, tag in ((vgg, "vgg"), (clf, "classifier"))
+                  for n, p in net.named_parameters(prefix=tag) if p.grad is not None]
+        require(not frozen, f"train_classifier: frozen parameters with a .grad: {frozen[:4]}")
+        warm = epochs[1:]
+        warm_s = sum(e["secs"] for e in warm)
+        warm_steps = len(warm) * steps_per_epoch
+
+        probe = content[:1]
+        ref = stylize(model, probe, clip=False, device=device).float().cpu().numpy()
+        path = os.path.join(run_dir, f"transfer_17-25_{TRAIN_EPOCHS}.pth")
+        out = stylize(load_transfer_params(path, device=device), probe, clip=False,
+                      device=device).float().cpu().numpy()
+        require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                "train_classifier: the pth export did not stylize")
+        db = psnr(out, ref)
+        require(db > 45.0, f"train_classifier: pth export {db} dB from the model")
+        reload_diff = float(np.abs(out - ref).max())
+
+        fns, data, r22 = train_step_fns(vgg, content, None, "auto", device, classifier=clf)
+        step_flops, step_bound_ms = step_flops_and_bound(fns, data, r22, peaks)
+
+        _, bf16_losses = train("classifier", CLF_ARTIST, num_epochs=1, model_dir=None,
+                               compute_dtype="bfloat16", **kwargs)
+        require(bool(np.isfinite(bf16_losses).all()), "train_classifier bf16: a loss is not finite")
+        bf16_ms = warm_ms_per_step(*train_step_fns(vgg, content, None, "auto", device,
+                                                   compute_dtype="bfloat16", classifier=clf))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_classifier", mode="classifier", size=size, batch=TRAIN_BATCH,
+         content=TRAIN_CONTENT, epochs=TRAIN_EPOCHS, steps=int(steps.shape[0]),
+         epoch_losses=losses.tolist(), step_total_first=float(steps[0, 2]),
+         step_total_last=float(steps[-1, 2]), gram_launches=launches, seconds=seconds,
+         epoch_secs=[e["secs"] for e in epochs], ms_per_step=warm_s * 1e3 / warm_steps,
+         images_per_sec=warm_steps * TRAIN_BATCH / warm_s, step_gflop=step_flops / 1e9,
+         step_bound_ms=step_bound_ms,
+         step_bound_share=step_bound_ms * warm_steps / (warm_s * 1e3), peak_mem_gib=peak_gib,
+         reload_max_abs_diff=reload_diff, bf16_epoch_losses=bf16_losses.tolist(),
+         bf16_ms_per_step_warm=bf16_ms)
+    return launches
 
 
 def profile_window(path: str, run, units: int, unit: str) -> None:
@@ -537,13 +842,18 @@ def profile_window(path: str, run, units: int, unit: str) -> None:
     emit("profile", path=path, units=units, unit=unit, wall_ms=wall_ms,
          device_busy_ms=total_us / 1e3, device_idle_share=1 - total_us / 1e3 / wall_ms,
          kernels_launched=sum(r[2] for r in rows),
+         # cuDNN's weight-gradient and data-gradient kernels, and its layout copies
+         calls_by_kind={kind: sum(r[2] for r in rows if kind in r[1])
+                        for kind in ("wgrad", "dgrad", "nhwcToNchw", "nchwToNhwc")},
          top=[{"kernel": k[:120], "ms": us / 1e3, "calls": cnt, "share": us / total_us}
               for us, k, cnt in rows[:20]])
 
 
 def phase_profile() -> None:
-    """Where the device time goes: 10 Gatys steps, one stylize batch of 4 at 512², and one
-    'cycle' training epoch of 4 steps at 224², B=4."""
+    """Where the device time goes: 10 Gatys steps, one stylize batch of 4 at 512², one
+    'cycle' training epoch of 4 steps at 224², B=4, one eval batch of 4 at 1024², and one
+    'classifier' training epoch of 4 steps at 224², B=4."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_batched
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
     from artist_style_transfer_tpu_torch.train.gatys import gatys_stylize
@@ -563,12 +873,21 @@ def phase_profile() -> None:
     perm = torch.arange(len(data))
     profile_window("train", lambda: fns.epoch_fn(data, r22, perm, 0), fns.steps_per_epoch,
                    "step")
+    clf = seeded_classifier("cuda")
+    images = eval_data()[:CLF_BATCH]
+    profile_window("eval", lambda: evaluate_with_classifier(
+        model, clf, images, 0, batch_size=CLF_BATCH, wordy=False, device="cuda"), CLF_BATCH,
+        "image")
+    fns, data, r22 = train_step_fns(vgg, content, None, "auto", "cuda", classifier=clf)
+    profile_window("train_classifier", lambda: fns.epoch_fn(data, r22, perm, 0),
+                   fns.steps_per_epoch, "step")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile Gatys steps, a stylize batch and train steps by kernel")
+                        help="also profile Gatys steps, a stylize batch, train steps of both "
+                             "modes and an eval batch by kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -582,6 +901,9 @@ def main(argv=None) -> int:
     phase_stylize()
     launches = {"gatys": phase_gatys()}
     launches["train"], launches["train_bf16"] = phase_train(peaks)
+    phase_classifier(peaks)
+    launches["eval"] = phase_eval()
+    launches["train_classifier"] = phase_train_classifier(peaks)
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -601,12 +923,14 @@ def main(argv=None) -> int:
         "bound_by": "operations" if gram["ops_ms"] >= gram["bytes_ms"] else "bytes",
         "library_ms": gram["library_ms"],
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
-                        "count, its counter zeroed just before it",
+                        "count, its counter zeroed just before it; eval and train_classifier "
+                        "compute no Gram and must count 0",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
-                     f"N={TRAIN_BATCH}, f32)",
+                     f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16",
         "train_taps": gram["train_taps"],
+        "train_taps_bf16": gram["train_taps_bf16"],
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

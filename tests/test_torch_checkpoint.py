@@ -237,7 +237,6 @@ def test_checkpoint_roundtrip_restores_model_and_optimizer(tmp_path):
 
 
 UNPORTED = [
-    (dict(style_method="classifier"), "classifier slice"),
     (dict(mesh=object()), "parallel slice"),
     (dict(content_stream=lambda epoch: []), "data-pipeline slice"),
     (dict(qat=True), "int8 slice"),
@@ -254,8 +253,6 @@ UNPORTED = [
     (dict(content_dir="c/"), "data-pipeline slice"),
     (dict(archive_dir="a/"), "data-pipeline slice"),
     (dict(cache_dir="d/"), "data-pipeline slice"),
-    (dict(classifier_path="c.pth"), "classifier slice"),
-    (dict(reference_typo_stats=True), "classifier slice"),
 ]
 
 

@@ -213,7 +213,7 @@ def test_inference_cli_display_on_cpu(tmp_path):
         "--content_size_w", "64", "--blur", "--sharpen", "--device", "cpu",
     ])
     assert os.path.exists(fig) and fig.endswith("Golden_random.png")
-    with pytest.raises(NotImplementedError, match="classifier"):
-        inference.main(["--no-display", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="int8 slice"):
+        inference.main(["--no-display", "--quantize", "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         inference.main(["--model_filename", "missing.pth", "--device", "cpu"])

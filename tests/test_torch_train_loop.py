@@ -257,7 +257,7 @@ def test_make_step_fns_refuses():
     targets = tstyles.StyleTargets(mode="random", grams={})
     opt, sched = tloop.make_optimizer(model.parameters(), LR, WD, 1, 2, 1)
     kw = dict(content_weight=CW, style_weight=SW, batch_size=B)
-    with pytest.raises(NotImplementedError, match="classifier slice"):
+    with pytest.raises(ValueError, match="needs a classifier"):
         tloop.make_step_fns("classifier", model, vgg, targets, opt, sched, num_content=4, **kw)
     with pytest.raises(ValueError, match="compute_dtype"):
         tloop.make_step_fns("random", model, vgg, targets, opt, sched, num_content=4,

@@ -252,8 +252,8 @@ def test_build_style_targets_match_jax(jax_params, port_vgg, mode):
 
 
 def test_build_style_targets_refuses(port_vgg):
-    with pytest.raises(NotImplementedError, match="classifier slice"):
-        tstyles.build_style_targets("classifier", port_vgg, "X", artist_index=0)
+    with pytest.raises(ValueError, match="not in tuple"):  # not one of the 19 artists
+        tstyles.build_style_targets("classifier", port_vgg, "X")
     with pytest.raises(ValueError, match="valid style method"):
         tstyles.build_style_targets("nope", port_vgg, "X", paintings=paintings())
     with pytest.raises(ValueError, match="at least one painting"):
