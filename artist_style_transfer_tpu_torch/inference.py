@@ -9,7 +9,8 @@ to run on the CPU). Two modes, as in the reference:
 - ``--no-display``: stylize up to ``--num_images`` JPEGs of ``--content_dir``
   and print the classifier's accuracy ``Acc=...`` (inference.py:79-166).
 
-Both decode with OpenCV, imported only when they run. The interactive
+Both decode with OpenCV, imported only when they run; ``--no-display
+--resize_imgs`` takes the native decode pool where it is available. The interactive
 ``--show`` window and the int8 ``--quantize`` eval belong to later slices of
 the port and raise ``NotImplementedError``.
 """
@@ -95,34 +96,54 @@ def run_display(args, model) -> str:
 
 
 def load_eval_images(args) -> list[np.ndarray]:
-    """Up to ``--num_images`` BGR uint8 JPEGs of ``--content_dir``, shuffled by ``--seed``.
+    """Up to ``--num_images`` BGR JPEGs of ``--content_dir``, shuffled by ``--seed``.
 
-    Under ``--resize_imgs`` each is resized to ``--resize_size`` square;
-    otherwise images above 1600 rows or 1024 columns, or below 224 in either,
-    are skipped (inference.py:84-101). Unreadable files are skipped.
+    Under ``--resize_imgs`` each is resized to ``--resize_size`` square, as the
+    JAX CLI does it (its ``inference.py:116-157``): the native decode pool
+    where it is available (float32 images; files it rejects are skipped),
+    else, or where it read none, OpenCV on the thread pool (uint8). Otherwise
+    images above 1600 rows or 1024 columns, or below 224 in either, are
+    skipped (inference.py:84-101). Unreadable files are skipped. Files are
+    decoded in chunks of what is still missing, in the shuffled order, so the
+    result is the serial loop's.
     """
     import random as _random
 
     import cv2
 
+    from artist_style_transfer_tpu_torch.data import native_loader
+    from artist_style_transfer_tpu_torch.data.datasets import pool_map
+
     files = [f for f in os.listdir(args.content_dir) if ".jpg" in f or ".JPEG" in f]
     rng = _random.Random(args.seed) if args.seed is not None else _random
     rng.shuffle(files)
-    content = []
-    for fname in files:
-        im = cv2.imread(os.path.join(args.content_dir, fname))
+    paths = [os.path.join(args.content_dir, f) for f in files]
+    size = args.resize_size
+
+    def read(path: str) -> np.ndarray | None:
+        im = cv2.imread(path)
         if im is None:
-            continue
+            return None
         if args.resize_imgs:
-            im = cv2.resize(im, (args.resize_size, args.resize_size))
-        else:
-            h, w, _ = im.shape
-            if h > 1600 or w > 1024 or h < 224 or w < 224:
-                continue
-        content.append(im)
-        if len(content) == args.num_images:
-            break
-    return content
+            return cv2.resize(im, (size, size))
+        h, w, _ = im.shape
+        return None if h > 1600 or w > 1024 or h < 224 or w < 224 else im
+
+    def take(decode) -> list[np.ndarray]:
+        content, i = [], 0
+        while len(content) < args.num_images and i < len(paths):
+            chunk = paths[i : i + (args.num_images - len(content))]
+            i += len(chunk)
+            content += [im for im in decode(chunk) if im is not None]
+        return content
+
+    content = []
+    if args.resize_imgs and native_loader.available():
+        def native(chunk):
+            out, ok = native_loader.decode_batch(chunk, size, size)
+            return [out[k] if ok[k] else None for k in range(len(chunk))]
+        content = take(native)
+    return content or take(lambda chunk: pool_map(read, chunk))
 
 
 def run_eval(args, model) -> float:

@@ -6,14 +6,19 @@ num_steps, content_weight, style_weight, lr, save_every; then the JAX
 package's keyword-only extensions, and ``device``.
 
 Flow: seed -> init TransformerNet -> VGG16 (+ the ResNet-50 classifier in
-'classifier' mode) -> content corpus to the device -> style targets (through
-the Hopper Gram kernel on CUDA; labels in 'classifier' mode) -> content
-relu2_2 once -> one eager epoch at a time -> checkpoints, ``.npz`` and ``.pth``.
+'classifier' mode) -> content corpus to the device (``data.get_content_dataset``
+from ``content_dir``) -> style targets from the painting corpus
+(``data.get_painting_dataset``/``get_avg_dataset`` from ``archive_dir`` and
+``cache_dir``), through the Hopper Gram kernel on CUDA; labels in 'classifier'
+mode -> content relu2_2 once -> one eager epoch at a time -> checkpoints,
+``.npz`` and ``.pth``. A ``content_stream`` replaces the resident corpus: its
+batches go through ``data.device_prefetch`` into a step that computes their
+content features itself. The in-memory hooks (``content_images``,
+``paintings``, ``avg_image``) replace the loaders.
 
-Data comes through the in-memory hooks (``content_images``, ``paintings``,
-``avg_image``): the JPEG/pickle data pipeline, and with it the training CLI,
-come with a later slice, and so do the other options the JAX ``train()``
-takes; each raises ``NotImplementedError`` naming its slice.
+The options of later slices (``mesh``, the int8 options, ``fold_batch``,
+``remat``, ``preview_every``, ``profile_dir``) raise ``NotImplementedError``
+naming their slice.
 """
 
 from __future__ import annotations
@@ -26,6 +31,13 @@ import time
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.data.datasets import (
+    get_avg_dataset,
+    get_content_dataset,
+    get_painting_dataset,
+)
+from artist_style_transfer_tpu_torch.data.prefetch import device_prefetch
+from artist_style_transfer_tpu_torch.data.stream import ContentFileStream
 from artist_style_transfer_tpu_torch.models.resnet import (
     ARTISTS_19,
     ResNet50Classifier,
@@ -44,23 +56,15 @@ from artist_style_transfer_tpu_torch.train.styles import MODES, build_style_targ
 from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 
-_DATA_SLICE = "the port's data-pipeline slice (ROADMAP Queue 1 item 7)"
 _INT8_SLICE = "the port's int8 slice (ROADMAP Queue 1 item 10)"
 _OPTIONS_SLICE = "a later slice of the port (ROADMAP Queue 1 item 6)"
 
-# The file loaders' arguments, at their defaults. The in-memory hooks replace
-# the loaders, so any other value would be ignored: it is refused instead.
-_LOADER_DEFAULTS = dict(train_size=224, content_dir="images/content/",
-                        archive_dir="images/archive/", cache_dir="dicts/")
 
-
-def _refuse_unported(*, mesh, content_stream, qat, quantize_loss, quantize_gram,
-                     fold_batch, remat, preview_every, profile_dir, content_images, paintings,
-                     avg_image, style_method, loader_args) -> None:
+def _refuse_unported(*, mesh, qat, quantize_loss, quantize_gram, fold_batch, remat,
+                     preview_every, profile_dir) -> None:
     checks = (
         (mesh is not None, "mesh (data-parallel training) comes with the port's parallel slice "
                            "(ROADMAP Queue 1 item 12)"),
-        (content_stream is not None, f"content_stream comes with {_DATA_SLICE}"),
         (bool(qat), f"qat comes with {_INT8_SLICE}"),
         (bool(quantize_loss), f"quantize_loss comes with {_INT8_SLICE}"),
         (quantize_gram is True, f"quantize_gram=True (the int8 Gram) comes with {_INT8_SLICE}"),
@@ -69,14 +73,6 @@ def _refuse_unported(*, mesh, content_stream, qat, quantize_loss, quantize_gram,
         (bool(remat), f"remat comes with {_OPTIONS_SLICE}"),
         (bool(preview_every), f"preview_every comes with {_OPTIONS_SLICE}"),
         (profile_dir is not None, f"profile_dir comes with {_OPTIONS_SLICE}"),
-        (content_images is None, f"pass content_images: loading the content corpus from "
-                                 f"content_dir comes with {_DATA_SLICE}"),
-        (paintings is None and style_method in ("random", "cycle", "smartaverage"),
-         f"pass paintings: loading the painting corpus comes with {_DATA_SLICE}"),
-        (avg_image is None and style_method == "average",
-         f"pass avg_image: loading the artist's mean image comes with {_DATA_SLICE}"),
-        *((loader_args[k] != v, f"{k}={loader_args[k]!r} serves the file loaders, which come "
-                                f"with {_DATA_SLICE}") for k, v in _LOADER_DEFAULTS.items()),
     )
     for refused, why in checks:
         if refused:
@@ -124,8 +120,11 @@ def train(
     preview_every: int = 0,
     export_pth: bool = True,
     wordy: bool = True,
+    # A streamed corpus (larger than the device holds): a callable (epoch: int) ->
+    # iterable of (B, H, W, 3) BGR [0,255] host batches, e.g. data.content_file_stream.
+    # content_data_size still sets the steps an epoch for the LR schedule.
     content_stream=None,
-    # In-memory data hooks; the file loaders come with the data-pipeline slice.
+    # In-memory data hooks: when given, the file loaders are skipped.
     content_images: np.ndarray | None = None,  # (N, H, W, 3) BGR [0,255]
     paintings: np.ndarray | None = None,  # (P, H, W, 3) BGR [0,255]
     avg_image: np.ndarray | None = None,  # (H, W, 3) BGR [0,255]
@@ -149,10 +148,13 @@ def train(
     the reference's (num_epochs, 3) float64 array of per-epoch [content,
     style, total] sums (train_cnn.py:281, :376-378). ``device=None`` means
     CUDA and raises without it; the CPU runs only when asked for.
-    The corpus is the first ``content_data_size`` of ``content_images``, as
-    the reference draws that many (train_cnn.py:168). ``train_size``,
-    ``content_dir``, ``archive_dir`` and ``cache_dir`` serve the file loaders,
-    which come with a later slice; a value other than the default raises.
+    The corpus is up to ``content_data_size`` images of ``content_dir``, shuffled
+    by ``seed`` and resized to ``train_size`` square, or the first
+    ``content_data_size`` of ``content_images`` (the reference draws that many,
+    train_cnn.py:168). The paintings of ``artist`` come from ``archive_dir``
+    (or the caches in ``cache_dir``), rescaled to ``train_size``. ``metrics.jsonl``
+    records where the data came from and which decoder read it (event ``data``),
+    and for a streamed epoch the host seconds the loop waited on the stream.
     'classifier' mode takes the frozen classifier from ``classifier`` or, when
     that is None, from ``classifier_path``; ``artist`` must be one of
     :data:`ARTISTS_19` (else ``ValueError``), and ``reference_typo_stats``
@@ -161,13 +163,9 @@ def train(
     if style_method not in MODES:
         print("enter valid style method!")  # train_cnn.py:274
         return 0
-    _refuse_unported(mesh=mesh, content_stream=content_stream, qat=qat,
-                     quantize_loss=quantize_loss, quantize_gram=quantize_gram,
-                     fold_batch=fold_batch, remat=remat, preview_every=preview_every,
-                     profile_dir=profile_dir, content_images=content_images,
-                     paintings=paintings, avg_image=avg_image, style_method=style_method,
-                     loader_args=dict(train_size=train_size, content_dir=content_dir,
-                                      archive_dir=archive_dir, cache_dir=cache_dir))
+    _refuse_unported(mesh=mesh, qat=qat, quantize_loss=quantize_loss,
+                     quantize_gram=quantize_gram, fold_batch=fold_batch, remat=remat,
+                     preview_every=preview_every, profile_dir=profile_dir)
     # Before anything is written: an artist outside the classifier's 19 raises.
     artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)
@@ -199,13 +197,40 @@ def train(
     classifier = (_resolve_frozen(classifier, ResNet50Classifier, load_classifier,
                                   classifier_path, dev)
                   if style_method == "classifier" else None)
-    content_data = torch.as_tensor(np.asarray(content_images[:content_data_size], np.float32),
-                                   device=dev)
-    n_content = content_data.shape[0]
+    data_log: dict[str, dict] = {}
+    if content_stream is not None:
+        content_data = None
+        n_content = content_data_size
+        data_log["content"] = {"source": "stream"}
+        if isinstance(content_stream, ContentFileStream):
+            data_log["content"]["decoder"] = content_stream.decoder
+    else:
+        if content_images is None:
+            if wordy:
+                print("Getting content dataset!")  # train_cnn.py:168
+            data_log["content"] = {"source": "files"}
+            content_images = get_content_dataset(content_data_size, train_size, train_size,
+                                                 content_dir=content_dir, seed=seed,
+                                                 stats=data_log["content"])
+        else:
+            data_log["content"] = {"source": "hook"}
+        content_data = torch.as_tensor(
+            np.asarray(content_images[:content_data_size], np.float32), device=dev)
+        n_content = content_data.shape[0]
 
     if wordy:
         print("Getting style dataset and features!")  # train_cnn.py:180
     t0 = time.perf_counter()
+    if style_method in ("random", "cycle", "smartaverage") and paintings is None:
+        data_log["paintings"] = {}
+        paintings = get_painting_dataset(False, train_size, train_size, archive_dir=archive_dir,
+                                         cache_dir=cache_dir,
+                                         stats=data_log["paintings"])[artist]
+    if style_method == "average" and avg_image is None:
+        data_log["paintings"] = {}
+        avg_image = get_avg_dataset(train_size, train_size, archive_dir=archive_dir,
+                                    cache_dir=cache_dir, stats=data_log["paintings"])[artist]
+    log.log("data", **data_log)
     targets = build_style_targets(style_method, vgg, artist, paintings=paintings,
                                   avg_image=avg_image, batch_size=batch_size,
                                   artist_index=artist_index, rng=nprng, use_kernel=use_kernel)
@@ -225,8 +250,10 @@ def train(
                         compute_dtype=compute_dtype,
                         classifier=classifier,
                         reference_typo_stats=reference_typo_stats)
-    content_r22 = precompute_content_relu2_2(
-        vgg, content_data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
+    content_r22 = None
+    if content_data is not None:
+        content_r22 = precompute_content_relu2_2(
+            vgg, content_data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
 
     start_epoch = 0
     losses = np.full((num_epochs, 3), -1.0, np.float64)
@@ -250,11 +277,22 @@ def train(
         # Time-sliced training: stop early but keep the full-run LR schedule;
         # a later resume=True call continues where this one stopped.
         end_epoch = min(num_epochs, start_epoch + max_epochs_this_run)
+    # A streamed epoch advances the step counter by the batches it really ran (the
+    # stream may yield more or fewer than steps_per_epoch), so the 'cycle' targets
+    # neither repeat nor skip; a resume starts it from the nominal count.
+    stream_step = start_epoch * steps_per_epoch
     for epoch in range(start_epoch, end_epoch):
         t_ep = time.perf_counter()
-        step_losses = fns.epoch_fn(content_data, content_r22,
-                                   epoch_permutation(seed, epoch, n_content),
-                                   epoch * steps_per_epoch)
+        extra = {}
+        if content_stream is not None:
+            step_losses, epoch_images, extra["stream_wait_secs"] = _run_stream_epoch(
+                fns, content_stream, epoch, stream_step, dev)
+            stream_step += len(step_losses)
+        else:
+            step_losses = fns.epoch_fn(content_data, content_r22,
+                                       epoch_permutation(seed, epoch, n_content),
+                                       epoch * steps_per_epoch)
+            epoch_images = n_content
         step_losses = step_losses.cpu().numpy().astype(np.float64)  # the epoch's one sync
         dt = time.perf_counter() - t_ep
         el = step_losses.sum(axis=0)
@@ -268,7 +306,7 @@ def train(
                         style_loss=float(step_losses[s, 1]),
                         total_loss=float(step_losses[s, 2]), stdout=False)
         log.log("epoch", epoch=epoch + 1, content_loss=float(el[0]), style_loss=float(el[1]),
-                total_loss=float(el[2]), secs=dt, images_per_sec=n_content / dt)
+                total_loss=float(el[2]), secs=dt, images_per_sec=epoch_images / dt, **extra)
         if prefix is not None and save_every and epoch % save_every == 0:
             ckpt.save_checkpoint(prefix, epoch, model, opt, sched, losses,
                                  completed_epochs=epoch + 1)
@@ -292,9 +330,10 @@ def train(
 def train_from_config(config, **overrides):
     """Run :func:`train` from a :class:`TrainConfig`; keyword overrides win.
 
-    ``mesh_shape`` other than None raises: data-parallel training comes with
-    the port's parallel slice; so does a ``data_dir`` other than the default,
-    which the file loaders of the data-pipeline slice read.
+    ``data_dir`` is the root of the reference's ``images/`` layout
+    (dataset.py:12-13): the content under ``<data_dir>/content/``, the Kaggle
+    archive under ``<data_dir>/archive/``. ``mesh_shape`` other than None
+    raises: data-parallel training comes with the port's parallel slice.
     """
     from artist_style_transfer_tpu_torch.utils.config import TrainConfig
 
@@ -305,9 +344,6 @@ def train_from_config(config, **overrides):
             "mesh_shape (data-parallel training) comes with the port's parallel slice "
             "(ROADMAP Queue 1 item 12)"
         )
-    if config.data_dir != "images":
-        raise NotImplementedError(
-            f"data_dir={config.data_dir!r} serves the file loaders, which come with {_DATA_SLICE}")
     kwargs = dict(
         style_method=config.style_method,
         artist=config.artist,
@@ -328,9 +364,31 @@ def train_from_config(config, **overrides):
         classifier_path=config.classifier_path,
         reference_typo_stats=config.reference_typo_stats,
         device=config.device,
+        content_dir=os.path.join(config.data_dir, "content/"),
+        archive_dir=os.path.join(config.data_dir, "archive/"),
     )
     kwargs.update(overrides)
     return train(**kwargs)
+
+
+def _run_stream_epoch(fns, content_stream, epoch: int, base_step: int, dev: torch.device):
+    """One epoch of a streamed corpus: host batches through ``device_prefetch`` (two
+    copies in flight) into the step, the losses kept on the device until the epoch ends.
+
+    Returns the (steps, 3) losses on the device, the images seen, and the host seconds
+    the loop spent waiting for the next batch (decode, pinning and the copy's launch).
+    """
+    losses, n_images, wait = [], 0, 0.0
+    batches = (np.asarray(b, np.float32) for b in content_stream(epoch))
+    t = time.perf_counter()
+    for i, batch in enumerate(device_prefetch(batches, buffer_size=2, device=dev)):
+        wait += time.perf_counter() - t
+        n_images += int(batch.shape[0])
+        losses.append(fns.stream_step_fn(batch, base_step + i))
+        t = time.perf_counter()
+    if not losses:
+        raise ValueError(f"content_stream yielded no batches for epoch {epoch}")
+    return torch.stack(losses), n_images, wait
 
 
 def _save_style_jpg(directory: str, image_bgr_255: np.ndarray, second: bool = False) -> None:

@@ -6,7 +6,9 @@ What carries over from the JAX loop, and what changes:
 - The content corpus lives on the device, and so do its relu2_2 features,
   computed once per run (:func:`precompute_content_relu2_2`); a batch is a
   gather by index from both. The ragged final batch runs at its own size
-  (the reference DataLoader keeps it, train_cnn.py:170).
+  (the reference DataLoader keeps it, train_cnn.py:170). A streamed corpus
+  (``StepFns.stream_step_fn``) computes each batch's content features in the
+  step instead, as that precompute does.
 - 'cycle' targets are indexed by the global step, ``step % P``.
 - The optimizer is torch ``Adam(lr, weight_decay)`` (L2 folded into the
   gradient, eps outside the sqrt) with the StepLR schedule of the reference
@@ -92,6 +94,8 @@ class StepFns:
     # (content_data, content_r22, perm, base_step) -> (steps_per_epoch, 3) on the device
     epoch_fn: Callable
     steps_per_epoch: int
+    # (batch on the device, step) -> (3,) on the device: one step of a streamed corpus
+    stream_step_fn: Callable
 
 
 def make_step_fns(
@@ -174,8 +178,16 @@ def make_step_fns(
                                   content_r22.index_select(0, idx), base_step + i))
         return torch.stack(losses)
 
+    def stream_step_fn(batch, step):
+        # The content relu2_2 as precompute_content_relu2_2 gives it: the f32 VGG
+        # without gradients, then the compute dtype, so the streamed trajectory is
+        # the resident one; the generated image still goes through vgg_compute.
+        with torch.no_grad():
+            r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
+        return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step)
+
     return StepFns(loss_fn=loss_fn, step_fn=step_fn, epoch_fn=epoch_fn,
-                   steps_per_epoch=steps_per_epoch)
+                   steps_per_epoch=steps_per_epoch, stream_step_fn=stream_step_fn)
 
 
 def precompute_content_relu2_2(

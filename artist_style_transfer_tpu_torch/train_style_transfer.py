@@ -1,0 +1,123 @@
+"""Training CLI — ``python -m artist_style_transfer_tpu_torch.train_style_transfer``.
+
+The flags and defaults of the JAX package's training CLI (the reference's
+``train()`` kwargs, train_cnn.py:144-146, which has no argparse of its own),
+plus ``--device`` (default: CUDA; ``--device cpu`` to run on the CPU).
+``--precision`` sets ``ops.precision``: unset, ``highest`` (TF32 off) with
+float32 and ``default`` with bfloat16.
+
+Flags of later slices parse and reach ``train()``, which refuses them:
+``--data_parallel``, ``--quantize_loss``, ``--qat``, ``--quantize_gram on``,
+``--fold_batch on|vgg``, ``--preview_every``, ``--profile_dir``. Two calls of
+the JAX CLI have no counterpart here: ``enable_compilation_cache`` (torch runs
+eagerly, and the kernels' build is kept in ``build/``), and
+``initialize_multihost``, which comes with the port's parallel slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--style_method", default="random",
+                   choices=["random", "average", "smartaverage", "cycle", "classifier"])
+    p.add_argument("--artist", default="Albrecht_Dürer")
+    p.add_argument("--num_epochs", type=int, default=200)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--content_data_size", type=int, default=256)
+    p.add_argument("--seed", type=int, default=2)
+    p.add_argument("--num_steps", type=int, default=2)
+    p.add_argument("--content_weight", type=float, default=17.0)
+    p.add_argument("--style_weight", type=float, default=25.0)
+    p.add_argument("--lr", type=float, default=0.0024)
+    p.add_argument("--save_every", type=int, default=10)
+    p.add_argument("--train_size", type=int, default=224)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--model_dir", default="models")
+    p.add_argument("--vgg_path", default="models/vgg16-00b39a1b.pth")
+    p.add_argument("--classifier_path", default="models/best-2.pth")
+    p.add_argument("--content_dir", default="images/content/")
+    p.add_argument("--archive_dir", default="images/archive/")
+    p.add_argument("--cache_dir", default="dicts/")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard batches over all local devices (the port's parallel slice)")
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 = mixed-precision throughput mode")
+    p.add_argument("--precision", default=None, choices=["highest", "default"],
+                   help="matmul/conv precision policy (ops/precision.py); unset = highest "
+                        "with float32, default (TF32) with bfloat16")
+    p.add_argument("--quantize_loss", nargs="?", const="deep", default=None,
+                   choices=["deep", "all"], help="int8 VGG loss extractor (the int8 slice)")
+    p.add_argument("--qat", nargs="?", const="trunk", default=None, choices=["trunk", "all"],
+                   help="int8 QAT transformer (the int8 slice)")
+    p.add_argument("--quantize_gram", default="auto", choices=["auto", "on", "off"],
+                   help="int8 Grams for the deep taps; 'on' comes with the int8 slice")
+    p.add_argument("--log_every_batches", type=int, default=12,
+                   help="per-batch loss records in metrics.jsonl (0 = off); reference "
+                        "BATCH_INFO_EVERY")
+    p.add_argument("--preview_every", type=int, default=0,
+                   help="preview figure every N epochs (a later slice; 0 = off)")
+    p.add_argument("--fold_batch", default="auto", choices=["auto", "on", "vgg", "off"],
+                   help="batch->H folding; training runs the direct path ('auto'/'off')")
+    p.add_argument("--max_epochs_this_run", type=int, default=None,
+                   help="stop after N epochs this invocation and persist the resume point "
+                        "(continue with --resume)")
+    p.add_argument("--profile_dir", default=None, help="profiler trace (a later slice)")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    return p
+
+
+def main(argv=None):
+    """Parse ``argv`` and train; returns ``train()``'s (model, losses)."""
+    args = build_parser().parse_args(argv)
+    from artist_style_transfer_tpu_torch.ops.precision import set_precision
+    from artist_style_transfer_tpu_torch.train import train
+
+    prec = args.precision
+    if prec is None:
+        # bf16 runs take the fast paths; f32 keeps exact parity.
+        prec = "default" if args.compute_dtype == "bfloat16" else "highest"
+    set_precision(prec)
+    return train(
+        style_method=args.style_method,
+        artist=args.artist,
+        num_epochs=args.num_epochs,
+        batch_size=args.batch_size,
+        content_data_size=args.content_data_size,
+        seed=args.seed,
+        num_steps=args.num_steps,
+        content_weight=args.content_weight,
+        style_weight=args.style_weight,
+        lr=args.lr,
+        save_every=args.save_every,
+        train_size=args.train_size,
+        weight_decay=args.weight_decay,
+        model_dir=args.model_dir,
+        vgg_path=args.vgg_path,
+        classifier_path=args.classifier_path,
+        content_dir=args.content_dir,
+        archive_dir=args.archive_dir,
+        cache_dir=args.cache_dir,
+        # Any mesh is refused until the parallel slice; this names what was asked for.
+        mesh="all local devices" if args.data_parallel else None,
+        resume=args.resume,
+        compute_dtype=args.compute_dtype,
+        log_every_batches=args.log_every_batches,
+        preview_every=args.preview_every,
+        quantize_loss=args.quantize_loss or False,
+        qat=args.qat or False,
+        quantize_gram={"auto": "auto", "on": True, "off": False}[args.quantize_gram],
+        fold_batch={"auto": "auto", "on": True, "vgg": "vgg", "off": False}[args.fold_batch],
+        max_epochs_this_run=args.max_epochs_this_run,
+        profile_dir=args.profile_dir,
+        wordy=not args.quiet,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py             # every phase, one card
     python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
                                       # batch, 4 'cycle' training steps, an eval batch,
-                                      # 4 'classifier' training steps
+                                      # 4 'classifier' training steps, 8 streamed steps
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -58,10 +58,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    no ``.grad`` on a VGG or classifier parameter, the ``.pth`` export reloaded
    and run; ms/step and images/s of epochs 2-3, peak memory, the step's FLOPs
    and bound; one bf16 epoch (finite) and a warm bf16 ms/step;
-9. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+9. data: the data pipeline on a seeded workspace written to a temp dir (256
+   content JPEGs of 320-640 x 320-640 plus one truncated file, three artists
+   in ``artists.csv`` with 64, 8 and 8 paintings of 200-500, a VGG16 ``.pth``
+   from ``init_vgg16`` seed 0): the loaders timed (images/s, the decoder that
+   ran) and held against a serial ``cv2.imread`` + ``cv2.resize``/``warpAffine``
+   of the same files in the same order (bit-equal on the cv2 route, within
+   1.0 on the native one), the truncated file skipped; then the training CLI
+   (``train_style_transfer.main``, 'cycle', 2 epochs of 256 images at 224x224,
+   B=4, on the default device): finite and falling epoch losses, the
+   checkpoints and exports, the ``.pth`` export stylizing, the decoder in ``metrics.jsonl``,
+   4*ceil(64/8) + 4*64*2 = 544 kernel launches; the stream refusing the
+   truncated file; ``train(content_stream=content_file_stream(...))`` for 2
+   epochs (544 launches, the host seconds waiting on the stream); a stream
+   replaying the resident permutation over 32 decoded images against
+   ``train(content_images=...)`` (per-epoch losses within rtol 1e-3); one
+   streamed step with the kernel against one without (within 1e-4);
+10. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
-Imports neither JAX nor the JAX package, nor cv2 or PIL. Without CUDA, or
-without the port's package beside it, it exits non-zero and prints no
+Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
+phases that write or read JPEGs (``eval``'s CLI step, ``data``). Without CUDA,
+or without the port's package beside it, it exits non-zero and prints no
 result.
 """
 
@@ -91,6 +108,11 @@ PEAKS = {
     "H100 PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12, "hbm": 2.0e12},
     "H100 NVL": {"fp32": 60e12, "tf32": 418e12, "bf16": 835e12, "hbm": 3.9e12},
 }
+# Host-side calls of a profiled window worth counting: the ones that wait for the device
+# (a synchronous copy ends in cudaStreamSynchronize), pin memory, or launch.
+HOST_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaHostAlloc", "cudaMemcpyAsync", "cudaLaunchKernel", "aten::pin_memory",
+              "aten::_pin_memory", "aten::copy_")
 FLUSH_BYTES = 256 << 20  # written between timed calls: more than the H100's 50 MB L2
 
 TAPS = (("relu1_2", 1, 64), ("relu2_2", 2, 128), ("relu3_3", 4, 256), ("relu4_3", 8, 512))
@@ -111,6 +133,13 @@ EVAL_IMAGES = 16
 EVAL_CPU_IMAGES = 2
 EVAL_CLI_IMAGES = 4
 CLF_ARTIST = "Pablo_Picasso"
+# The data phase: the reference's content corpus size (content_data_size=256) and three
+# artists of the Kaggle archive layout, the trained one with 64 paintings.
+DATA_CONTENT = 256
+DATA_ARTISTS = (("Seeded Artist", 64), ("Second Artist", 8), ("Third Artist", 8))
+DATA_EPOCHS = 2
+DATA_PARITY_IMAGES = 32
+DATA_PROFILE_STEPS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -816,7 +845,362 @@ def phase_train_classifier(peaks: dict, size: int = TRAIN_SIZE, device: str = "c
     return launches
 
 
-def profile_window(path: str, run, units: int, unit: str) -> None:
+def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501)) -> dict:
+    """The seeded workspace of the data phase under ``root``, in the reference's layout:
+    ``images/content/`` (DATA_CONTENT JPEGs and one truncated file),
+    ``images/archive/artists.csv`` and ``resized/resized/<name>_<i>.jpg``, an empty
+    ``dicts/``, ``models/vgg16-00b39a1b.pth``. Images are smooth colour fields with
+    noise, so they compress and decode like photographs rather than like white noise."""
+    import cv2
+
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+
+    rng = np.random.default_rng(7)
+
+    def image(lo: int, hi: int) -> np.ndarray:
+        h, w = (int(v) for v in rng.integers(lo, hi, 2))
+        coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
+        smooth = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC).astype(np.int16)
+        return np.clip(smooth + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+
+    ws = {k: os.path.join(root, v) for k, v in (
+        ("content", "images/content"), ("archive", "images/archive"), ("cache", "dicts"),
+        ("models", "models"))}
+    for d in ws.values():
+        os.makedirs(d)
+    paintings = os.path.join(ws["archive"], "resized", "resized")
+    os.makedirs(paintings)
+    for i in range(DATA_CONTENT):
+        cv2.imwrite(os.path.join(ws["content"], f"c{i:03d}.jpg"), image(*size_range))
+    with open(os.path.join(ws["content"], "c000.jpg"), "rb") as fh:
+        head = fh.read(200)  # inside the JPEG headers: no decoder gets an image out of it
+    ws["bad"] = os.path.join(ws["content"], "truncated.jpg")
+    with open(ws["bad"], "wb") as fh:
+        fh.write(head)
+    with open(os.path.join(ws["archive"], "artists.csv"), "w") as fh:
+        fh.write("id,name,paintings\n")
+        for k, (name, n) in enumerate(DATA_ARTISTS):
+            fh.write(f"{k},{name},{n}\n")
+            for i in range(1, n + 1):
+                cv2.imwrite(os.path.join(paintings, f"{name.replace(' ', '_')}_{i}.jpg"),
+                            image(*painting_range))
+    ws["vgg"] = os.path.join(ws["models"], "vgg16-00b39a1b.pth")
+    torch.save(init_vgg16(torch.Generator().manual_seed(0)).state_dict(), ws["vgg"])
+    ws["artist"] = DATA_ARTISTS[0][0].replace(" ", "_")
+    return ws
+
+
+def serial_loaders(ws: dict, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """The plain version of the loaders: the reference's serial cv2 loops
+    (dataset.py:93-101, :135-164 and its rescale) over the same files in the same
+    order, f32: the content corpus, and the trained artist's paintings."""
+    import random
+
+    import cv2
+
+    from artist_style_transfer_tpu_torch.data.datasets import rescale_image
+
+    files = sorted(os.listdir(ws["content"]))
+    random.Random(2).shuffle(files)
+    content = []
+    for f in files:
+        im = cv2.imread(os.path.join(ws["content"], f))
+        if im is not None:
+            content.append(cv2.resize(im, (size, size)).astype(np.float32))
+        if len(content) == DATA_CONTENT:
+            break
+    n = DATA_ARTISTS[0][1]
+    paintings = [cv2.imread(os.path.join(ws["archive"], "resized", "resized",
+                                         f"{ws['artist']}_{i}.jpg")) for i in range(1, n + 1)]
+    return (np.stack(content),
+            np.stack([rescale_image(im, size, size) for im in paintings]).astype(np.float32))
+
+
+def data_loaders(ws: dict, size: int) -> tuple[dict, np.ndarray, np.ndarray]:
+    """``get_content_dataset``/``get_painting_dataset`` timed and held against the serial
+    loops: bit-equal on the cv2 route, within 1.0 on the native one."""
+    from artist_style_transfer_tpu_torch.data import get_content_dataset, get_painting_dataset
+
+    stats = {"content": {}, "paintings": {}}
+    t0 = time.perf_counter()
+    content = get_content_dataset(DATA_CONTENT, size, size, content_dir=ws["content"], seed=2,
+                                  stats=stats["content"])
+    content_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = get_painting_dataset(False, size, size, archive_dir=ws["archive"],
+                                  cache_dir=ws["cache"], stats=stats["paintings"])
+    paintings_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_content, ref_paintings = serial_loaders(ws, size)
+    serial_s = time.perf_counter() - t0
+    c, p = stats["content"], stats["paintings"]
+    require(c["images"] == DATA_CONTENT and c["skipped"] == 1,
+            f"data: content loader kept {c['images']} and skipped {c['skipped']} "
+            f"of {DATA_CONTENT} JPEGs and one truncated file")
+    require(p["source"] == "decoded" and p["images"] == sum(n for _, n in DATA_ARTISTS),
+            f"data: painting loader {p}")
+    errs = {}
+    for what, got, ref, route in (("content", content, ref_content, c["decoder"]),
+                                  ("paintings", corpus[ws["artist"]], ref_paintings,
+                                   p["decoder"])):
+        require(got.shape == ref.shape, f"data: {what} {got.shape} vs serial {ref.shape}")
+        errs[what] = float(np.abs(got - ref).max())
+        if route == "cv2":
+            require(errs[what] == 0.0, f"data: {what} on the cv2 route differs from the serial "
+                                       f"loop by {errs[what]}")
+        else:
+            require(errs[what] < 1.0, f"data: {what} on the native route {errs[what]} from cv2")
+    out = {
+        "content": {**c, "seconds": content_s, "images_per_sec": c["images"] / content_s},
+        "paintings": {**p, "seconds": paintings_s, "images_per_sec": p["images"] / paintings_s},
+        "serial_cv2_seconds": serial_s,
+        "serial_cv2_images_per_sec": (c["images"] + DATA_ARTISTS[0][1]) / serial_s,
+        "max_abs_err_vs_serial": errs,
+    }
+    return out, content, corpus[ws["artist"]]
+
+
+def metrics_of(run_dir: str) -> tuple[list[dict], list[dict], dict]:
+    """The epoch records, the per-batch losses and the ``data`` record of a run."""
+    events = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    return ([e for e in events if e["event"] == "epoch"],
+            [e for e in events if e["event"] == "batch"],
+            next(e for e in events if e["event"] == "data"))
+
+
+def phase_data(size: int = TRAIN_SIZE, device: str | None = None,
+               workspace=data_workspace) -> tuple[int, int]:
+    """The data pipeline, the training CLI and the streamed path; returns the kernel
+    launches of the CLI run and of the streamed run. ``device=None`` is the entry
+    points' default, CUDA."""
+    from artist_style_transfer_tpu_torch import train_style_transfer
+    from artist_style_transfer_tpu_torch.data import (
+        content_file_stream,
+        device_prefetch,
+        native_loader,
+    )
+    from artist_style_transfer_tpu_torch.data.datasets import decoder_route
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
+    from artist_style_transfer_tpu_torch.models.vgg import load_vgg16
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+    from artist_style_transfer_tpu_torch.train import train
+    from artist_style_transfer_tpu_torch.train.loop import epoch_permutation
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t0 = time.perf_counter()
+        ws = workspace(tmp)
+        workspace_s = time.perf_counter() - t0
+        loaders, content, paintings = data_loaders(ws, size)
+        route = decoder_route()
+        artist = ws["artist"]
+        n_paint = DATA_ARTISTS[0][1]
+        steps = -(-DATA_CONTENT // TRAIN_BATCH)
+        expect = 4 * -(-n_paint // 8) + 4 * steps * DATA_EPOCHS
+
+        # The CLI on the default device: counter zeroed just before, read just after.
+        model_dir = os.path.join(tmp, "models")
+        dev_args = [] if device is None else ["--device", device]
+        sync()
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        model, losses = train_style_transfer.main([
+            "--style_method", "cycle", "--artist", artist, "--num_epochs", str(DATA_EPOCHS),
+            "--batch_size", str(TRAIN_BATCH), "--content_data_size", str(DATA_CONTENT),
+            "--train_size", str(size), "--save_every", "1", "--log_every_batches", "1",
+            "--content_dir", ws["content"], "--archive_dir", ws["archive"],
+            "--cache_dir", ws["cache"], "--model_dir", model_dir, "--vgg_path", ws["vgg"],
+            "--quiet", *dev_args])
+        sync()
+        cli_s = time.perf_counter() - t0
+        cli_launches = gram_kernel.LAUNCHES
+        run_dir = os.path.join(model_dir, artist, "cycle")
+        epochs, batches, data_rec = metrics_of(run_dir)
+        require(bool(np.isfinite(losses).all()) and losses[-1, 2] < losses[0, 2],
+                f"data CLI: epoch losses {losses.tolist()}")
+        require(len(batches) == steps * DATA_EPOCHS, f"data CLI: {len(batches)} batch records")
+        require(cli_launches == expect, f"data CLI: gram launches {cli_launches} != {expect}")
+        require(data_rec["content"].get("decoder") == route
+                and data_rec["paintings"].get("decoder") == route,
+                f"data CLI: metrics.jsonl names no {route!r} decoder: {data_rec}")
+        names = set(os.listdir(run_dir))
+        # 'cycle' writes no style.jpg: the reference writes it for 'random' and 'average'.
+        want = {f"transfer_17-25_{e}.ckpt" for e in range(DATA_EPOCHS + 1)} | {
+            f"transfer_17-25_{DATA_EPOCHS}.{x}" for x in ("npy", "npz", "pth")} | {
+            "metrics.jsonl"}
+        require(want <= names, f"data CLI: missing artifacts {sorted(want - names)}")
+        dev = next(model.parameters()).device
+        probe = content[:1]
+        ref = stylize(model, probe, clip=False, device=dev).float().cpu().numpy()
+        out = stylize(load_transfer_params(os.path.join(run_dir,
+                                                        f"transfer_17-25_{DATA_EPOCHS}.pth"), dev),
+                      probe, clip=False, device=dev).float().cpu().numpy()
+        require(psnr(out, ref) > 45.0, f"data CLI: the .pth export is {psnr(out, ref)} dB off")
+        cli_ms = epochs[-1]["secs"] * 1e3 / steps
+
+        # A file no decoder reads stops the stream (no silent skip).
+        try:
+            for _ in content_file_stream(ws["content"], TRAIN_BATCH, size, size, seed=2)(0):
+                pass
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        require(refused is not None and "truncated.jpg" in refused,
+                f"data stream: the truncated file was not refused: {refused}")
+        os.remove(ws["bad"])
+
+        # The streamed main path: counter zeroed just before, read just after.
+        vgg = load_vgg16(ws["vgg"], dev)
+        kw = dict(batch_size=TRAIN_BATCH, seed=2, wordy=False, vgg=vgg, device=dev,
+                  archive_dir=ws["archive"], cache_dir=ws["cache"], train_size=size)
+        stream = content_file_stream(ws["content"], TRAIN_BATCH, size, size,
+                                     content_data_size=DATA_CONTENT, seed=2)
+        stream_dir = os.path.join(tmp, "stream")
+        sync()
+        gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, s_losses = train("cycle", artist, num_epochs=DATA_EPOCHS,
+                            content_data_size=DATA_CONTENT, content_stream=stream,
+                            model_dir=stream_dir, save_every=1, log_every_batches=1, **kw)
+        sync()
+        stream_s = time.perf_counter() - t0
+        stream_launches = gram_kernel.LAUNCHES
+        s_epochs, s_batches, s_data = metrics_of(os.path.join(stream_dir, artist, "cycle"))
+        require(bool(np.isfinite(s_losses).all()) and s_losses[-1, 2] < s_losses[0, 2],
+                f"data stream: epoch losses {s_losses.tolist()}")
+        require(len(s_batches) == steps * DATA_EPOCHS, f"data stream: {len(s_batches)} batches")
+        require(stream_launches == expect, f"data stream: gram launches {stream_launches} != "
+                                           f"{expect}")
+        require(s_data["content"].get("decoder") == route, f"data stream: {s_data}")
+        stream_ms = s_epochs[-1]["secs"] * 1e3 / steps
+        # The stream alone, and through device_prefetch, with no training beside it.
+        alone = {}
+        for what in ("decode", "decode_and_copy"):
+            batches = stream(DATA_EPOCHS)
+            if what == "decode_and_copy":
+                batches = device_prefetch(batches, device=dev)
+            t0 = time.perf_counter()
+            n = sum(int(b.shape[0]) for b in batches)
+            sync()
+            alone[what] = {"images": n, "images_per_sec": n / (time.perf_counter() - t0)}
+
+        # Streamed against resident: the resident permutation replayed over decoded images.
+        corpus = content[:DATA_PARITY_IMAGES]
+
+        def replay(epoch):
+            perm = epoch_permutation(2, epoch, len(corpus)).numpy()
+            for s in range(0, len(corpus), TRAIN_BATCH):
+                yield corpus[perm[s : s + TRAIN_BATCH]]
+
+        pkw = dict(kw, paintings=paintings, num_epochs=DATA_EPOCHS, model_dir=None,
+                   content_data_size=len(corpus))
+        _, resident = train("cycle", artist, content_images=corpus, **pkw)
+        _, streamed = train("cycle", artist, content_stream=replay, **pkw)
+        parity_rel = float(np.max(np.abs(streamed - resident) / np.abs(resident)))
+        require(parity_rel <= 1e-3, f"data: streamed vs resident per-epoch losses rel {parity_rel}")
+
+        # One streamed step with the kernel against one without.
+        batch = torch.as_tensor(corpus[:TRAIN_BATCH], device=dev)
+        step = []
+        for use_kernel in (True, False):
+            fns, _, _ = train_step_fns(vgg, corpus[:TRAIN_BATCH], paintings[:8], use_kernel, dev)
+            step.append(fns.stream_step_fn(batch, 0).cpu())
+        step_rel = ((step[0] - step[1]).abs() / step[1].abs()).max().item()
+        require(step_rel <= 1e-4, f"data: streamed step kernel vs plain rel {step_rel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("data", size=size, batch=TRAIN_BATCH, content=DATA_CONTENT, epochs=DATA_EPOCHS,
+         paintings={name.replace(" ", "_"): n for name, n in DATA_ARTISTS},
+         decoder=route, native_loader_error=native_loader.load_error,
+         workspace_seconds=workspace_s, loaders=loaders,
+         cli={"seconds": cli_s, "epoch_losses": losses.tolist(),
+              "epoch_secs": [e["secs"] for e in epochs], "ms_per_step_epoch2": cli_ms,
+              "images_per_sec_epoch2": steps * TRAIN_BATCH * 1e3 / (cli_ms * steps),
+              "gram_launches": cli_launches, "expected_launches": expect,
+              "pth_reload_psnr_db": psnr(out, ref), "data_record": data_rec},
+         stream={"seconds": stream_s, "epoch_losses": s_losses.tolist(),
+                 "epoch_secs": [e["secs"] for e in s_epochs], "ms_per_step_epoch2": stream_ms,
+                 "stream_wait_secs": [e["stream_wait_secs"] for e in s_epochs],
+                 "gram_launches": stream_launches, "refused": refused[:120],
+                 "alone": alone},
+         stream_over_resident_ms=stream_ms / cli_ms,
+         parity={"images": len(corpus), "resident": resident.tolist(),
+                 "streamed": streamed.tolist(), "max_rel": parity_rel},
+         kernel_vs_plain_stream_step_rel=step_rel,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
+         else None)
+    return cli_launches, stream_launches
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def merged(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def copy_timeline(prof, wall_ms: float) -> dict:
+    """The host-to-device copies of a traced window against the kernels: the pinned
+    batch copies' time each, their streams, and how much of it ran while a kernel of
+    another stream ran; the device's busy share as the union of every interval."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and e.time_range.elapsed_us() > 0]
+    span = lambda e: (e.time_range.start, e.time_range.end)  # noqa: E731
+    stream = lambda e: getattr(e, "device_resource_id", None)  # noqa: E731
+    copies = [e for e in evs if "Memcpy HtoD" in e.name and "Pinned" in e.name]
+    kernels = [e for e in evs if "Memcpy" not in e.name and "Memset" not in e.name]
+    copy_streams = {stream(e) for e in copies}
+    busy = merged([span(e) for e in kernels if stream(e) not in copy_streams])
+    overlap_us = 0.0
+    for e in copies:
+        a, b = span(e)
+        overlap_us += sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
+    copy_us = sum(e.time_range.elapsed_us() for e in copies)
+    union_us = sum(b - a for a, b in merged([span(e) for e in evs]))
+    names: dict[str, int] = {}
+    for e in evs:
+        if "Memcpy" in e.name:
+            names[e.name] = names.get(e.name, 0) + 1
+    return {"pinned_copies": len(copies), "memcpy_names": names,
+            "copy_ms_per_batch": copy_us / 1e3 / max(1, len(copies)),
+            "copy_streams": sorted(str(s) for s in copy_streams),
+            "kernel_streams": sorted({str(stream(e)) for e in kernels}),
+            "copy_overlap_share": overlap_us / copy_us if copy_us else None,
+            "device_busy_union_ms": union_us / 1e3,
+            "device_idle_share_union": 1 - union_us / 1e3 / wall_ms}
+
+
+class TimedStream:
+    """A content stream whose batches are timed as the loop takes them: ``waits`` holds
+    the host seconds each ``next()`` of the last epoch took (decode not yet done)."""
+
+    def __init__(self, stream):
+        self.stream, self.waits = stream, []
+
+    def __call__(self, epoch: int):
+        self.waits = []
+        it = iter(self.stream(epoch))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            self.waits.append(time.perf_counter() - t0)
+            if batch is None:
+                return
+            yield batch
+
+
+def profile_window(path: str, run, units: int, unit: str, timeline: bool = False,
+                   decode_wait: TimedStream | None = None) -> None:
     """Device time by kernel over one warm call of ``run`` (``--profile`` only).
 
     Only device-side kernel events count: the host-side ``aten::`` rows carry
@@ -839,7 +1223,14 @@ def profile_window(path: str, run, units: int, unit: str) -> None:
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     require(total_us > 0, f"profile of {path}: no device time recorded")
-    emit("profile", path=path, units=units, unit=unit, wall_ms=wall_ms,
+    extra = {"copies": copy_timeline(prof, wall_ms)} if timeline else {}
+    if decode_wait is not None:
+        extra["decode_wait_ms"] = [w * 1e3 for w in decode_wait.waits]
+    # Host calls that wait on the device, pin memory or launch kernels.
+    host = {ev.key: {"calls": ev.count, "ms": ev.cpu_time_total / 1e3}
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CPU
+            and ev.key in HOST_CALLS}
+    emit("profile", path=path, units=units, unit=unit, wall_ms=wall_ms, host_calls=host, **extra,
          device_busy_ms=total_us / 1e3, device_idle_share=1 - total_us / 1e3 / wall_ms,
          kernels_launched=sum(r[2] for r in rows),
          # cuDNN's weight-gradient and data-gradient kernels, and its layout copies
@@ -851,8 +1242,9 @@ def profile_window(path: str, run, units: int, unit: str) -> None:
 
 def phase_profile() -> None:
     """Where the device time goes: 10 Gatys steps, one stylize batch of 4 at 512², one
-    'cycle' training epoch of 4 steps at 224², B=4, one eval batch of 4 at 1024², and one
-    'classifier' training epoch of 4 steps at 224², B=4."""
+    'cycle' training epoch of 4 steps at 224², B=4, one eval batch of 4 at 1024², one
+    'classifier' training epoch of 4 steps at 224², B=4, and 8 streamed 'cycle' steps at
+    224², B=4 (JPEGs decoded ahead, pinned copies on the copy stream)."""
     from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_batched
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
@@ -881,13 +1273,35 @@ def phase_profile() -> None:
     fns, data, r22 = train_step_fns(vgg, content, None, "auto", "cuda", classifier=clf)
     profile_window("train_classifier", lambda: fns.epoch_fn(data, r22, perm, 0),
                    fns.steps_per_epoch, "step")
+    profile_stream(vgg)
+
+
+def profile_stream(vgg) -> None:
+    """DATA_PROFILE_STEPS streamed 'cycle' steps through ``train()``'s streamed epoch."""
+    from artist_style_transfer_tpu_torch.data import content_file_stream
+    from artist_style_transfer_tpu_torch.train.api import _run_stream_epoch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_stream_")
+    try:
+        ws = data_workspace(tmp)
+        os.remove(ws["bad"])
+        content, paintings = train_data()
+        fns, _, _ = train_step_fns(vgg, content[:TRAIN_BATCH], paintings, "auto", "cuda")
+        stream = content_file_stream(ws["content"], TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
+                                     content_data_size=DATA_PROFILE_STEPS * TRAIN_BATCH, seed=2)
+        timed = TimedStream(stream)
+        profile_window("train_stream", lambda: _run_stream_epoch(
+            fns, timed, 0, 0, torch.device("cuda")), DATA_PROFILE_STEPS, "step", timeline=True,
+            decode_wait=timed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
                         help="also profile Gatys steps, a stylize batch, train steps of both "
-                             "modes and an eval batch by kernel")
+                             "modes, an eval batch and streamed train steps by kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -904,6 +1318,8 @@ def main(argv=None) -> int:
     phase_classifier(peaks)
     launches["eval"] = phase_eval()
     launches["train_classifier"] = phase_train_classifier(peaks)
+    torch.cuda.reset_peak_memory_stats()
+    launches["train_cli"], launches["train_stream"] = phase_data()
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -924,7 +1340,8 @@ def main(argv=None) -> int:
         "library_ms": gram["library_ms"],
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
                         "count, its counter zeroed just before it; eval and train_classifier "
-                        "compute no Gram and must count 0",
+                        "compute no Gram and must count 0; train_cli is the training CLI "
+                        "from directories, train_stream train() over content_file_stream",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "

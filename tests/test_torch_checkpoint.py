@@ -1,7 +1,8 @@
 """``train()``, checkpoints and exports of the PyTorch port on the CPU: resume,
 ``.npz`` interop with the JAX package in both directions, the reference's
 ``transfer_``/``transfer2_`` naming, the ``.pth`` export, the refusals of
-what later slices bring, and ``train_from_config``.
+what later slices bring, the data arguments of ``train()``, and
+``train_from_config``.
 
 Tolerances: a resumed run equals an uninterrupted one exactly (same device,
 same arithmetic); TransformerNet outputs across packages > 45 dB PSNR, the
@@ -27,6 +28,7 @@ from artist_style_transfer_tpu_torch.train import train, train_from_config
 from artist_style_transfer_tpu_torch.utils.config import TrainConfig
 from artist_style_transfer_tpu_torch.utils.jax_params import transformer_state_dict_from_jax
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 SIZE = 32
 
@@ -238,7 +240,6 @@ def test_checkpoint_roundtrip_restores_model_and_optimizer(tmp_path):
 
 UNPORTED = [
     (dict(mesh=object()), "parallel slice"),
-    (dict(content_stream=lambda epoch: []), "data-pipeline slice"),
     (dict(qat=True), "int8 slice"),
     (dict(quantize_loss=True), "int8 slice"),
     (dict(quantize_gram=True), "int8 slice"),
@@ -246,13 +247,6 @@ UNPORTED = [
     (dict(remat=True), "later slice"),
     (dict(preview_every=1), "later slice"),
     (dict(profile_dir="prof"), "later slice"),
-    (dict(content_images=None), "data-pipeline slice"),
-    (dict(paintings=None), "data-pipeline slice"),
-    (dict(style_method="average", avg_image=None), "data-pipeline slice"),
-    (dict(train_size=SIZE), "data-pipeline slice"),
-    (dict(content_dir="c/"), "data-pipeline slice"),
-    (dict(archive_dir="a/"), "data-pipeline slice"),
-    (dict(cache_dir="d/"), "data-pipeline slice"),
 ]
 
 
@@ -265,6 +259,61 @@ def test_train_refuses_what_later_slices_bring(hooks, tmp_path, kw, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         train(**args)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    pytest.importorskip("cv2")
+    from tests.test_torch_data import write_workspace
+
+    return write_workspace(tmp_path_factory.mktemp("ws"))
+
+
+def data_record(model_dir) -> dict:
+    events = [json.loads(line)
+              for line in open(os.path.join(model_dir, "Artist_One", "cycle", "metrics.jsonl"))]
+    return next(e for e in events if e["event"] == "data")
+
+
+# What the data-pipeline slice brought, each once refused: the loaders read the
+# workspace where a hook is None, and a loader argument beside a hook changes nothing.
+DATA_ARGS = [
+    (dict(content_stream="stream"), "stream"),
+    (dict(content_images=None), "files"),
+    (dict(paintings=None), "hook"),
+    (dict(style_method="average", avg_image=None), "hook"),
+    (dict(train_size=SIZE), "hook"),
+    (dict(content_dir="c/"), "hook"),
+    (dict(archive_dir="a/"), "hook"),
+    (dict(cache_dir="d/"), "hook"),
+]
+
+
+@pytest.mark.parametrize("kw,content_source", DATA_ARGS,
+                         ids=["-".join(f"{k}={v!r}"[:24] for k, v in kw.items())
+                              for kw, _ in DATA_ARGS])
+def test_train_takes_what_the_data_slice_brings(hooks, workspace, tmp_path, kw, content_source):
+    common = dict(hooks, artist="Artist_One", num_epochs=1, batch_size=2)
+    args = dict(common, style_method="cycle", model_dir=str(tmp_path))
+    args.update(kw)
+    if content_source != "hook" or "paintings" in kw or "avg_image" in kw:
+        for k in ("content", "archive", "cache"):
+            args.setdefault(f"{k}_dir", workspace[k])
+        args.setdefault("train_size", SIZE)
+    if kw.get("content_stream"):
+        content = hooks["content_images"]
+        args.update(content_images=None,
+                    content_stream=lambda epoch: (content[i : i + 2] for i in (0, 2)))
+    _, losses = train(**args)
+    assert losses.shape == (1, 3) and np.isfinite(losses).all()
+    if args["style_method"] == "cycle":
+        rec = data_record(tmp_path)
+        assert rec["content"]["source"] == content_source
+        assert ("paintings" in rec) == (args["paintings"] is None)
+    if len(args) == len(common) + 3:  # a loader argument beside every hook
+        # The hooks win: the loaders' argument changes nothing.
+        np.testing.assert_array_equal(
+            losses, train(**common, style_method="cycle", model_dir=None)[1])
 
 
 def test_train_device_and_mode_checks(hooks, tmp_path, capsys):
@@ -285,8 +334,9 @@ def test_train_from_config(hooks, tmp_path):
     assert losses.shape == (1, 3) and os.path.exists(tmp_path / "Cfg" / "cycle" / "transfer_17-25_1.pth")
     with pytest.raises(NotImplementedError, match="parallel slice"):
         train_from_config(TrainConfig(mesh_shape=(1,), device="cpu"))
-    with pytest.raises(NotImplementedError, match="data-pipeline slice"):
-        train_from_config(TrainConfig(data_dir="elsewhere", device="cpu"))
+    with pytest.raises(FileNotFoundError, match="elsewhere/content/"):
+        train_from_config(TrainConfig(data_dir=str(tmp_path / "elsewhere"), device="cpu"),
+                          vgg=hooks["vgg"], wordy=False, model_dir=None)
     with pytest.raises(TypeError, match="TrainConfig"):
         train_from_config(dataclasses.asdict(cfg))
 

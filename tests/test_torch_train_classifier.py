@@ -19,6 +19,7 @@ Tolerances, those of ``tests/test_torch_train_loop.py``:
 - bf16: first-step losses within 5e-3 relative.
 """
 
+import json
 import os
 
 import numpy as np
@@ -42,6 +43,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
 )
 from tests.test_torch_classifier import numpy_params
 from tests.test_torch_train_loop import zero_grad_leaf
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 SIZE, B, N = 32, 2, 5
 LR, WD, CW, SW = 0.01, 1e-4, 17.0, 25.0
@@ -298,7 +300,6 @@ REFUSED = [
     (dict(quantize_loss=True), NotImplementedError, "int8 slice"),
     (dict(qat=True), NotImplementedError, "int8 slice"),
     (dict(mesh=object()), NotImplementedError, "parallel slice"),
-    (dict(content_images=None), NotImplementedError, "data-pipeline slice"),
     (dict(artist="Albrecht_Dürer"), ValueError, "not in tuple"),
 ]
 
@@ -310,6 +311,25 @@ def test_train_classifier_mode_refusals(hooks, tmp_path, kw, exc, match):
     with pytest.raises(exc, match=match):
         train("classifier", **args)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+def test_train_classifier_mode_loads_the_content_dir(hooks, tmp_path):
+    """Without ``content_images`` the corpus comes from ``content_dir``; 'classifier' mode
+    reads no painting."""
+    pytest.importorskip("cv2")
+    from tests.test_torch_data import write_workspace
+
+    ws = write_workspace(tmp_path / "ws")
+    args = dict(hooks, artist=ARTIST, num_epochs=1, batch_size=2, model_dir=str(tmp_path / "m"),
+                content_images=None, content_dir=ws["content"], archive_dir="nowhere/",
+                train_size=SIZE)
+    _, losses = train("classifier", **args)
+    assert np.isfinite(losses).all()
+    events = [json.loads(line)
+              for line in open(tmp_path / "m" / ARTIST / "classifier" / "metrics.jsonl")]
+    data = next(e for e in events if e["event"] == "data")
+    assert data["content"]["source"] == "files" and data["content"]["images"] == 6
+    assert "paintings" not in data
 
 
 def test_classifier_targets_and_step_fns_refusals(hooks):
