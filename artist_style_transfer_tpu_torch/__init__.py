@@ -23,4 +23,6 @@ Conventions:
   plain PyTorch version runs only for CPU tensors or when asked for.
 """
 
+from artist_style_transfer_tpu_torch.utils.config import InferenceConfig, TrainConfig  # noqa: F401
+
 __version__ = "0.1.0"

@@ -4,7 +4,10 @@ copy of the JAX ``data/native_loader.py``).
 ``native/dataloader.cpp`` (C++ over libjpeg, a std::thread pool) is compiled at
 first use with the flags of ``native/Makefile`` into ``build/`` at the root of the
 checkout, which git ignores; ``native/`` is only read. The library's name carries
-a hash of the source and the flags, so a changed source builds anew.
+a hash of the source, the flags and the host (:func:`host_key`: the machine and
+its CPU's flags, since ``-march=native`` builds for this CPU), so a changed
+source builds anew, and a library that another host built, which travels with
+a copied ``build/``, is never loaded: this host builds its own.
 
 - :func:`decode_batch`: parallel decode + resample of JPEG paths into one
   float32 NHWC BGR buffer (the reference decodes serially through cv2.imread,
@@ -21,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import platform
 import subprocess
 import tempfile
 import threading
@@ -44,9 +48,26 @@ _tried = False
 load_error: str | None = None  # why the library is unavailable, once a load was tried
 
 
+def host_key() -> str:
+    """The machine and its CPU's feature flags (``/proc/cpuinfo``; the processor's name
+    where that file is missing): what ``-march=native`` compiles for."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if key.strip() in ("flags", "Features"):  # x86, arm
+                    flags = value.strip()
+                    break
+    except OSError:
+        flags = platform.processor()
+    return f"{platform.machine()} {flags}"
+
+
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join((CXX, *CXXFLAGS, *LDFLAGS)).encode())
     h.update(SOURCE.read_bytes())
+    h.update(host_key().encode())
     return BUILD_DIR / f"libastloader-{h.hexdigest()[:16]}.so"
 
 

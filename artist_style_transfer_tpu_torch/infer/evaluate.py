@@ -5,36 +5,70 @@ The repo's one quantitative quality metric: stylize content images, clip to
 uint8, center crop 256, torchvision-normalize, classify, and report the top-1
 accuracy against the target artist. The reference runs image by image with
 host round trips; here each batch runs the whole pipeline on the device, and
-only its predictions come back.
+only its predictions come back. ``quantize=True`` runs both nets in int8
+(:func:`quantize_eval_pipeline`): the quantized stylizer with bf16
+accumulators and the quantized frozen classifier, every interior conv on
+kernel K2.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
+from artist_style_transfer_tpu_torch.models.resnet_q import QuantizedClassifier, quantize_classifier
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.models.transformer_q import (
+    QuantizedTransformerNet,
+    quantize_transformer,
+)
 from artist_style_transfer_tpu_torch.ops.image import bgr_to_rgb, center_crop, torchvision_normalize
 from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 
 
 def eval_logits(
-    model: TransformerNet,
-    classifier: ResNet50Classifier,
+    model: TransformerNet | QuantizedTransformerNet,
+    classifier: ResNet50Classifier | QuantizedClassifier,
     images_bgr_255: torch.Tensor,
     crop_size: int = 256,
 ) -> torch.Tensor:
     """Stylize -> uint8 clip -> crop -> classify, for one NHWC batch on the models' device
-    (JAX ``_eval_core``).
+    (JAX ``_eval_core``, or ``_eval_core_int8`` for the quantized pair).
 
     The reference saves to uint8 before its classifier transform
-    (inference.py:116 -> :154), so the output is clipped and floored first.
+    (inference.py:116 -> :154), so the output is clipped and floored first. A
+    quantized stylizer runs with bf16 accumulators, as JAX's int8 eval does.
     """
     with torch.inference_mode():
-        out = torch.floor(model(images_bgr_255.float()).clamp(0.0, 255.0))
+        if isinstance(model, QuantizedTransformerNet):
+            out = model(images_bgr_255.float(), accum=torch.bfloat16).float()
+        else:
+            out = model(images_bgr_255.float())
+        out = torch.floor(out.clamp(0.0, 255.0))
         rgb01 = bgr_to_rgb(center_crop(out, crop_size)) / 255.0
         return classifier(torchvision_normalize(rgb01))
+
+
+def quantize_eval_pipeline(
+    model: TransformerNet, classifier: ResNet50Classifier, calib_images
+) -> tuple[QuantizedTransformerNet, QuantizedClassifier]:
+    """(quantized stylizer, quantized classifier) for the int8 eval path.
+
+    ``calib_images``: a few NHWC BGR [0,255] content images; the stylizer's static
+    activation scales come from one forward over them. The classifier uses
+    dynamic scales and needs no calibration.
+    """
+    return (quantize_transformer(model, np.asarray(calib_images, np.float32)),
+            quantize_classifier(classifier))
+
+
+def _device_of(net: torch.nn.Module) -> torch.device:
+    """Where a net lives: its first parameter's device, or its first buffer's (the
+    quantized nets hold buffers only)."""
+    return next(itertools.chain(net.parameters(), net.buffers())).device
 
 
 def evaluate_with_classifier(
@@ -60,23 +94,29 @@ def evaluate_with_classifier(
     (``None`` means CUDA). Prints ``Pred=...`` lines (with ``artists``) and
     ``Acc=...`` as the reference does (inference.py:155-166).
 
+    ``quantize=True`` runs the int8 pipeline: both nets quantized
+    (:func:`quantize_eval_pipeline`), the stylizer calibrated on the first (at most
+    2) images that share the first one's shape. Its predictions may differ from
+    the real pipeline's by quantization rounding.
+
     ``fold_batch`` is accepted and changes nothing: the JAX package's batch->H
     fold is a TPU layout rewrite of the same math. ``crop_size`` is 256 in the
     reference; smaller values serve tests at small shapes.
     """
     del fold_batch
-    if quantize:
-        raise NotImplementedError(
-            "quantize=True (the int8 eval pipeline) comes with the port's int8 slice "
-            "(ROADMAP Queue 1 item 10)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh (data-parallel eval) comes with the port's parallel slice (ROADMAP Queue 1 item 12)")
     dev = resolve_device(device)
     for name, net in (("model", model), ("classifier", classifier)):
-        net_dev = next(net.parameters()).device
+        net_dev = _device_of(net)
         if not same_device(net_dev, dev):
             raise ValueError(f"{name} is on {net_dev}, not on {dev}")
+    if quantize:
+        calib = [np.asarray(content_images[i]) for i in range(min(2, len(content_images)))]
+        # Calibrate on same-shape images (mixed-size lists cannot stack).
+        calib = [c for c in calib if c.shape == calib[0].shape]
+        model, classifier = quantize_eval_pipeline(model, classifier, np.stack(calib))
 
     n = len(content_images)
     preds = np.zeros((n,), np.int64)

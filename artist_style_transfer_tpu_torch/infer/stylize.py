@@ -2,18 +2,21 @@
 inference.py:104-125).
 
 Takes NHWC BGR [0,255] images (uint8 or float32) and returns the stylized
-batch, clipped to uint8 by default. The int8 and row-sharded stylize paths
-belong to later slices.
+batch, clipped to uint8 by default; :func:`stylize_int8` runs the quantized
+net (int8 interior convs on kernel K2). The row-sharded stylize paths belong
+to the parallel slice (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import torch
 
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
 from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 
 
@@ -39,6 +42,31 @@ def stylize(
         out = model(x, fold_batch=fold_batch)
         if clip:
             out = out.clamp(0.0, 255.0).to(torch.uint8)
+    return out
+
+
+def stylize_int8(
+    qmodel: QuantizedTransformerNet,
+    images_bgr_255,
+    clip: bool = True,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Int8 stylize (JAX ``stylize_int8``): the contract of :func:`stylize`, through the
+    quantized forward with bf16 accumulators (JAX ``accum=jnp.bfloat16``).
+
+    ``qmodel`` comes from :func:`models.transformer_q.quantize_transformer` and must
+    live on ``device`` (``None`` means CUDA). Returns NHWC BGR, uint8 if ``clip``
+    else bf16.
+    """
+    dev = resolve_device(device)
+    qdev = next(qmodel.buffers()).device
+    if not same_device(qdev, dev):
+        raise ValueError(f"quantized model is on {qdev}, not on {dev}")
+    x = torch.as_tensor(images_bgr_255).to(dev)
+    with torch.inference_mode():
+        out = qmodel(x, accum=torch.bfloat16)
+        if clip:
+            out = out.float().clamp(0.0, 255.0).to(torch.uint8)
     return out
 
 
@@ -109,6 +137,11 @@ def gaussian_blur(image_hwc: np.ndarray, sigma: float = 1.0, ksize: int = 3) -> 
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def gaussian_blur_3x3(image_hwc: np.ndarray, sigma: float = 1.0) -> np.ndarray:
+    """cv2.GaussianBlur(ksize=(3, 3)) equivalent (reference inference.py:120)."""
+    return gaussian_blur(image_hwc, sigma, ksize=3)
+
+
 def sharpen(image_hwc: np.ndarray, sharpen_val: float = 50.0) -> np.ndarray:
     """The reference's cv2.filter2D sharpen kernel (inference.py:123-125)."""
     kern = np.array([[-1, -1, -1], [-1, sharpen_val, -1], [-1, -1, -1]], np.float64) / (
@@ -127,26 +160,83 @@ def save_figure(
     content_bgr: np.ndarray,
     out_bgr: np.ndarray,
     style_bgr: np.ndarray | None = None,
+    show: bool = False,
 ) -> None:
-    """2-/3-panel Content/Style/Transformed figure (reference inference.py:126-152),
-    written with matplotlib's non-interactive Agg backend."""
-    import matplotlib
+    """2-/3-panel Content/Style/Transformed figure (reference inference.py:126-152).
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    With matplotlib: the reference's figure through the non-interactive Agg
+    backend; ``show=True`` also opens its blocking window (inference.py:152)
+    where a display and a GUI backend exist, and on a headless host writes the
+    file alone. Without matplotlib: the same panels, side by side in the same
+    order and place, the titles drawn as text, written with OpenCV
+    (:func:`_save_figure_cv2`). Neither installed: ``RuntimeError``.
+    """
     panels = 3 if style_bgr is not None else 2
     titles = ["Content", "Style", "Transformed"] if panels == 3 else ["Content", "Transformed"]
     imgs = [content_bgr, style_bgr, out_bgr] if panels == 3 else [content_bgr, out_bgr]
-    fig = plt.figure(figsize=(18, 5))
+    imgs = [np.clip(img, 0, 255).astype(np.uint8) for img in imgs]
+    os.makedirs(os.path.dirname(fig_path) or ".", exist_ok=True)
+    try:
+        import matplotlib
+    except ImportError:
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError("save_figure needs matplotlib or OpenCV (cv2); neither is "
+                               "installed") from None
+        _save_figure_cv2(cv2, fig_path, imgs, titles)
+        return
+
+    has_display = bool(os.environ.get("DISPLAY")) or sys.platform in ("darwin", "win32")
+    interactive = show and has_display and matplotlib.get_backend().lower() not in _FILE_BACKENDS
+    if not interactive:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=_FIGSIZE)
     try:
         for i, (img, title) in enumerate(zip(imgs, titles)):
             ax = fig.add_subplot(1, panels, i + 1)
-            ax.imshow(np.clip(img, 0, 255).astype(np.uint8)[..., ::-1],
-                      interpolation="nearest", aspect="auto")
+            ax.imshow(img[..., ::-1], interpolation="nearest", aspect="auto")
             ax.set_title(title, fontsize=28)
             ax.axis("off")
-        os.makedirs(os.path.dirname(fig_path) or ".", exist_ok=True)
         fig.savefig(fig_path)
+        if interactive:
+            try:
+                plt.show()  # blocking, like the reference's display loop
+            except Exception as e:  # a stale DISPLAY: the file is written, so warn only
+                import logging
+
+                logging.getLogger(__name__).warning("show: no interactive window (%s)", e)
     finally:
         plt.close(fig)
+
+
+_FILE_BACKENDS = ("agg", "pdf", "ps", "svg", "template")
+_FIGSIZE = (18, 5)  # inches, at matplotlib's default 100 dpi
+# matplotlib's default subplot parameters: the axes' box within the figure, and the
+# gap between axes as a fraction of their width.
+_SUBPLOT = {"left": 0.125, "right": 0.9, "bottom": 0.11, "top": 0.88, "wspace": 0.2}
+
+
+def _save_figure_cv2(cv2, fig_path: str, imgs: list[np.ndarray], titles: list[str]) -> None:
+    """The figure of :func:`save_figure` drawn with OpenCV: a white 1800x500 canvas, each
+    image stretched into the box matplotlib gives its axes (nearest neighbour, as
+    ``imshow(interpolation="nearest", aspect="auto")``), its title centred above."""
+    width, height = _FIGSIZE[0] * 100, _FIGSIZE[1] * 100
+    sp = _SUBPLOT
+    n = len(imgs)
+    axes_w = (sp["right"] - sp["left"]) * width / (n + (n - 1) * sp["wspace"])
+    y0, y1 = round((1 - sp["top"]) * height), round((1 - sp["bottom"]) * height)
+    canvas = np.full((height, width, 3), 255, np.uint8)
+    font, scale, thick = cv2.FONT_HERSHEY_SIMPLEX, 1.4, 2
+    for i, (img, title) in enumerate(zip(imgs, titles)):
+        x0 = round(sp["left"] * width + i * axes_w * (1 + sp["wspace"]))
+        x1 = round(sp["left"] * width + i * axes_w * (1 + sp["wspace"]) + axes_w)
+        canvas[y0:y1, x0:x1] = cv2.resize(img, (x1 - x0, y1 - y0),
+                                          interpolation=cv2.INTER_NEAREST)
+        (tw, _), _ = cv2.getTextSize(title, font, scale, thick)
+        cv2.putText(canvas, title, ((x0 + x1 - tw) // 2, y0 - 14), font, scale, (0, 0, 0), thick,
+                    cv2.LINE_AA)
+    if not cv2.imwrite(fig_path, canvas):
+        raise OSError(f"cv2 could not write {fig_path}")

@@ -10,9 +10,12 @@ to run on the CPU). Two modes, as in the reference:
   and print the classifier's accuracy ``Acc=...`` (inference.py:79-166).
 
 Both decode with OpenCV, imported only when they run; ``--no-display
---resize_imgs`` takes the native decode pool where it is available. The interactive
-``--show`` window and the int8 ``--quantize`` eval belong to later slices of
-the port and raise ``NotImplementedError``.
+--resize_imgs`` takes the native decode pool where it is available. The figure
+is written with matplotlib, or with OpenCV where matplotlib is missing;
+``--show`` also opens the reference's window where a display exists, and on a
+headless host writes the file alone. ``--no-display --quantize`` runs the int8
+eval pipeline (both nets quantized, their convs on kernel K2).
+:func:`run_from_config` runs it from an :class:`InferenceConfig`.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fig_dir", default=d.fig_dir)
     p.add_argument("--classifier_path", default=d.classifier_path)
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--quantize", action="store_true", default=d.quantize)
+    p.add_argument("--quantize", action="store_true", default=d.quantize,
+                   help="eval mode: run the stylize->classify pipeline in int8 (quantized "
+                        "stylizer and quantized frozen classifier)")
     p.add_argument("--device", default=d.device, help="torch device (default: cuda)")
     return p
 
@@ -90,7 +95,7 @@ def run_display(args, model) -> str:
             style_img = cv2.imread(style_path)
 
     fig_path = os.path.join(args.fig_dir, f"{args.artist}_{args.style_method}.png")
-    save_figure(fig_path, im, out, style_img)
+    save_figure(fig_path, im, out, style_img, show=args.show)
     print(f"wrote {fig_path}")
     return fig_path
 
@@ -156,22 +161,25 @@ def run_eval(args, model) -> float:
     print(f"Grabbed {len(content)} images!\n")  # inference.py:102
     # Mixed sizes (under --no-resize_imgs) batch by exact shape inside.
     return evaluate_with_classifier(model, classifier, content, ARTISTS_19.index(args.artist),
-                                    artists=ARTISTS_19, device=args.device)
+                                    artists=ARTISTS_19, quantize=args.quantize,
+                                    device=args.device)
 
 
 def main(argv=None):
     return _run(build_parser().parse_args(argv))
 
 
+def run_from_config(config: InferenceConfig, **overrides):
+    """Run inference from an :class:`InferenceConfig`; its fields map 1:1 onto the
+    flags, and keyword overrides win (JAX ``run_from_config``)."""
+    import dataclasses
+
+    return _run(argparse.Namespace(**{**dataclasses.asdict(config), **overrides}))
+
+
 def _run(args):
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
 
-    if args.show:
-        raise NotImplementedError("--show (the interactive figure window) is not ported yet")
-    if args.quantize:
-        raise NotImplementedError(
-            "--quantize (the int8 eval pipeline) comes with the port's int8 slice "
-            "(ROADMAP Queue 1 item 10)")
     model_dir = os.path.join(args.model_dir, args.artist, args.style_method)
     if args.model_filename is None or not os.path.exists(
         os.path.join(model_dir, args.model_filename)

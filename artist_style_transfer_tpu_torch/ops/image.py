@@ -31,6 +31,11 @@ def bgr_to_rgb(x: torch.Tensor) -> torch.Tensor:
     return x.flip(-1)
 
 
+def rgb_to_bgr(x: torch.Tensor) -> torch.Tensor:
+    """Flip the last (channel) axis between RGB and BGR (its own inverse)."""
+    return x.flip(-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _constant(values: tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``values`` as a tensor on ``device``, made once per (values, dtype, device).

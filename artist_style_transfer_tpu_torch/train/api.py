@@ -16,9 +16,13 @@ batches go through ``data.device_prefetch`` into a step that computes their
 content features itself. The in-memory hooks (``content_images``,
 ``paintings``, ``avg_image``) replace the loaders.
 
-The options of later slices (``mesh``, the int8 options, ``fold_batch``,
-``remat``, ``preview_every``, ``profile_dir``) raise ``NotImplementedError``
-naming their slice.
+``remat`` recomputes activations in the backward (``torch.utils.checkpoint``),
+``preview_every`` writes a Content/Style/Transformed figure every N epochs,
+``profile_dir`` traces the second epoch with ``torch.profiler``, and
+``fold_batch`` is accepted and runs the direct path (JAX's batch->H fold is a
+TPU layout rewrite of the same math). The options of later slices (``mesh``
+and the int8 training options) raise ``NotImplementedError`` naming their
+slice.
 """
 
 from __future__ import annotations
@@ -56,23 +60,20 @@ from artist_style_transfer_tpu_torch.train.styles import MODES, build_style_targ
 from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 
-_INT8_SLICE = "the port's int8 slice (ROADMAP Queue 1 item 10)"
-_OPTIONS_SLICE = "a later slice of the port (ROADMAP Queue 1 item 6)"
+_INT8_LOSS_SLICE = "the port's int8 slice for the loss extractor (ROADMAP Queue 1 item 10b)"
+_QAT_SLICE = "the port's int8 slice for QAT (ROADMAP Queue 1 item 10c)"
+_FOLD_BATCH = ("auto", True, False, "vgg")
 
 
-def _refuse_unported(*, mesh, qat, quantize_loss, quantize_gram, fold_batch, remat,
-                     preview_every, profile_dir) -> None:
+def _refuse_unported(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> None:
+    if fold_batch not in _FOLD_BATCH:
+        raise ValueError(f"fold_batch must be one of {_FOLD_BATCH}, got {fold_batch!r}")
     checks = (
         (mesh is not None, "mesh (data-parallel training) comes with the port's parallel slice "
                            "(ROADMAP Queue 1 item 12)"),
-        (bool(qat), f"qat comes with {_INT8_SLICE}"),
-        (bool(quantize_loss), f"quantize_loss comes with {_INT8_SLICE}"),
-        (quantize_gram is True, f"quantize_gram=True (the int8 Gram) comes with {_INT8_SLICE}"),
-        (fold_batch not in ("auto", False), f"fold_batch={fold_batch!r} comes with {_OPTIONS_SLICE}; "
-                                            "training runs the direct path"),
-        (bool(remat), f"remat comes with {_OPTIONS_SLICE}"),
-        (bool(preview_every), f"preview_every comes with {_OPTIONS_SLICE}"),
-        (profile_dir is not None, f"profile_dir comes with {_OPTIONS_SLICE}"),
+        (bool(qat), f"qat comes with {_QAT_SLICE}"),
+        (bool(quantize_loss), f"quantize_loss comes with {_INT8_LOSS_SLICE}"),
+        (quantize_gram is True, f"quantize_gram=True (the int8 Gram) comes with {_INT8_LOSS_SLICE}"),
     )
     for refused, why in checks:
         if refused:
@@ -164,8 +165,7 @@ def train(
         print("enter valid style method!")  # train_cnn.py:274
         return 0
     _refuse_unported(mesh=mesh, qat=qat, quantize_loss=quantize_loss,
-                     quantize_gram=quantize_gram, fold_batch=fold_batch, remat=remat,
-                     preview_every=preview_every, profile_dir=profile_dir)
+                     quantize_gram=quantize_gram, fold_batch=fold_batch)
     # Before anything is written: an artist outside the classifier's 19 raises.
     artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)
@@ -249,7 +249,7 @@ def train(
                         batch_size=batch_size, num_content=n_content, use_kernel=use_kernel,
                         compute_dtype=compute_dtype,
                         classifier=classifier,
-                        reference_typo_stats=reference_typo_stats)
+                        reference_typo_stats=reference_typo_stats, remat=remat)
     content_r22 = None
     if content_data is not None:
         content_r22 = precompute_content_relu2_2(
@@ -282,6 +282,9 @@ def train(
     # neither repeat nor skip; a resume starts it from the nominal count.
     stream_step = start_epoch * steps_per_epoch
     for epoch in range(start_epoch, end_epoch):
+        # The second epoch is traced (the first includes cuDNN's algorithm search), as JAX
+        # traces its second (the first includes compilation).
+        profiler = _start_profile(dev) if profile_dir and epoch == start_epoch + 1 else None
         t_ep = time.perf_counter()
         extra = {}
         if content_stream is not None:
@@ -295,6 +298,9 @@ def train(
             epoch_images = n_content
         step_losses = step_losses.cpu().numpy().astype(np.float64)  # the epoch's one sync
         dt = time.perf_counter() - t_ep
+        if profiler is not None:
+            log.log("profile_written", dir=profile_dir, trace=_stop_profile(profiler, profile_dir,
+                                                                            epoch))
         el = step_losses.sum(axis=0)
         losses[epoch] = el
         if log_every_batches:
@@ -310,6 +316,11 @@ def train(
         if prefix is not None and save_every and epoch % save_every == 0:
             ckpt.save_checkpoint(prefix, epoch, model, opt, sched, losses,
                                  completed_epochs=epoch + 1)
+        if (prefix is not None and preview_every and epoch % preview_every == 0
+                and content_data is not None):
+            # The reference's live preview (train_cnn.py:337-354) as a file, as JAX writes it.
+            _save_preview(os.path.join(os.path.dirname(prefix), f"preview_{epoch}.png"), model,
+                          content_data[:1], targets.style_preview_bgr, dev)
 
     log.log("trained", secs=time.perf_counter() - run_start)  # train_cnn.py:387
     if prefix is not None:
@@ -389,6 +400,33 @@ def _run_stream_epoch(fns, content_stream, epoch: int, base_step: int, dev: torc
     if not losses:
         raise ValueError(f"content_stream yielded no batches for epoch {epoch}")
     return torch.stack(losses), n_images, wait
+
+
+def _start_profile(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, epoch: int) -> str:
+    """End the trace and write it as a Chrome trace; returns its path."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{epoch + 1}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def _save_preview(path: str, model, first: torch.Tensor, style_bgr, dev: torch.device) -> None:
+    from artist_style_transfer_tpu_torch.infer.stylize import save_figure, stylize
+
+    out = stylize(model, first, device=dev)[0].cpu().numpy()
+    save_figure(path, first[0].cpu().numpy(), out, style_bgr)
 
 
 def _save_style_jpg(directory: str, image_bgr_255: np.ndarray, second: bool = False) -> None:

@@ -19,6 +19,9 @@ What carries over from the JAX loop, and what changes:
 - ``jax.random`` permutations cannot be reproduced, so the epoch function
   takes its permutation as an argument, as JAX's does;
   :func:`epoch_permutation` is the port's own, keyed on (seed, epoch).
+- ``remat=True`` recomputes the transformer's and the VGG's activations in the
+  backward instead of keeping them (``torch.utils.checkpoint``, where JAX wraps
+  both in ``jax.checkpoint``): less memory, the same losses and gradients.
 - ``compute_dtype="bfloat16"`` casts the params, the batch and a copy of the
   VGG weights (and of the classifier's, BN statistics included) to bf16
   inside the step (``torch.func.functional_call``), so the master weights,
@@ -41,6 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
@@ -114,6 +118,7 @@ def make_step_fns(
     compute_dtype: str = "float32",
     classifier: ResNet50Classifier | None = None,
     reference_typo_stats: bool = False,
+    remat: bool = False,
 ) -> StepFns:
     """Build the step functions of a training run.
 
@@ -138,20 +143,25 @@ def make_step_fns(
                    else copy.deepcopy(classifier).to(cdtype))
     num_cycle = targets.num_cycle if mode == "cycle" else 0
 
+    def remat_or_call(fn, *args, **kwargs):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
+
     def loss_fn(params, batch, content_r22, grams, step):
         if cdtype != torch.float32:
             params = {k: v.to(cdtype) for k, v in params.items()}
             batch = batch.to(cdtype)
-        gen = functional_call(model, params, (batch,))
+        gen = remat_or_call(functional_call, model, params, (batch,))
         if mode == "classifier":
             # relu2_2 alone for the content loss (train_cnn.py:64-68); BGR [0,255] ->
             # RGB [0,1] -> torchvision stats for the classifier (train_cnn.py:312).
-            gen_r22 = vgg_compute(vgg_caffe_preprocess(gen), just_content=True)
+            gen_r22 = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen), just_content=True)
             logits = clf_compute(torchvision_normalize(bgr_to_rgb(gen) / 255.0,
                                                        reference_typo_stats))
             s_loss = style_weight * cross_entropy_loss(logits, targets.labels[: batch.shape[0]])
         else:
-            feats = vgg_compute(vgg_caffe_preprocess(gen))
+            feats = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen))
             gen_r22 = feats["relu2_2"]
             s_loss = style_weight * style_loss_gram(
                 feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel

@@ -7,8 +7,10 @@ plus ``--device`` (default: CUDA; ``--device cpu`` to run on the CPU).
 float32 and ``default`` with bfloat16.
 
 Flags of later slices parse and reach ``train()``, which refuses them:
-``--data_parallel``, ``--quantize_loss``, ``--qat``, ``--quantize_gram on``,
-``--fold_batch on|vgg``, ``--preview_every``, ``--profile_dir``. Two calls of
+``--data_parallel``, ``--quantize_loss``, ``--qat``, ``--quantize_gram on``.
+``--fold_batch on|vgg`` runs the direct path (the same math), ``--preview_every``
+writes a figure every N epochs and ``--profile_dir`` a trace of the second
+epoch. Two calls of
 the JAX CLI have no counterpart here: ``enable_compilation_cache`` (torch runs
 eagerly, and the kernels' build is kept in ``build/``), and
 ``initialize_multihost``, which comes with the port's parallel slice.
@@ -59,13 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-batch loss records in metrics.jsonl (0 = off); reference "
                         "BATCH_INFO_EVERY")
     p.add_argument("--preview_every", type=int, default=0,
-                   help="preview figure every N epochs (a later slice; 0 = off)")
+                   help="preview figure every N epochs (0 = off)")
     p.add_argument("--fold_batch", default="auto", choices=["auto", "on", "vgg", "off"],
-                   help="batch->H folding; training runs the direct path ('auto'/'off')")
+                   help="batch->H folding: accepted, and training runs the direct path, the "
+                        "same math")
     p.add_argument("--max_epochs_this_run", type=int, default=None,
                    help="stop after N epochs this invocation and persist the resume point "
                         "(continue with --resume)")
-    p.add_argument("--profile_dir", default=None, help="profiler trace (a later slice)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the second epoch here")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     return p

@@ -11,6 +11,13 @@ Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
 weights are *spatially flipped* HWIO (the importer flips once so the
 transpose conv runs as a dilated conv); they become torch's unflipped
 (I, O, kH, kW). JAX dense weights are (I, O) and become (O, I).
+
+The quantized pytrees of JAX ``quantize_transformer`` and
+``quantize_classifier`` (int8 codes, scales, folded biases) become the port's
+quantized modules with the same codes (:func:`quantized_transformer_from_jax`,
+:func:`quantized_classifier_from_jax`). There every conv weight, the transpose
+convs' included, is OIHW in the conv form: JAX runs its flipped HWIO over the
+dilated input as a plain conv, and so does the port.
 """
 
 from __future__ import annotations
@@ -30,6 +37,21 @@ def _t(a) -> torch.Tensor:
 def _conv_w(a) -> torch.Tensor:
     """HWIO -> OIHW."""
     return _t(np.transpose(np.asarray(a), (3, 2, 0, 1)))
+
+
+def _q(a) -> torch.Tensor:
+    """A numpy array of the quantized pytrees, exact: int8 codes stay int8; bf16 (an
+    ml_dtypes array) and f32 values go through f32, which holds both exactly."""
+    a = np.asarray(a)
+    if a.dtype == np.int8:
+        return torch.from_numpy(a.copy())
+    return _t(a.astype(np.float32))
+
+
+def _q_conv_w(a) -> torch.Tensor:
+    """Quantized HWIO (int8 codes or bf16) -> OIHW in channels_last."""
+    return _q(np.transpose(np.asarray(a), (3, 2, 0, 1))).contiguous(
+        memory_format=torch.channels_last)
 
 
 def _convT_w(a) -> torch.Tensor:
@@ -143,3 +165,43 @@ def classifier_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     put_bn("1.6", head["bn2"])
     put_dense("1.8", head["fc2"])
     return sd
+
+
+def quantized_transformer_from_jax(qparams: dict):
+    """JAX ``quantize_transformer`` pytree -> :class:`models.transformer_q.QuantizedTransformerNet`
+    with the same int8 codes, ``sin`` scales and bf16 endpoint weights (on the CPU)."""
+    from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
+
+    def in_conv(p: dict) -> dict:
+        return {"wq": _q_conv_w(p["wq"]), "gamma": _q(p["gamma"]), "beta": _q(p["beta"]),
+                "sin": _q(p["sin"])}
+
+    stem = {"w": _q_conv_w(qparams["stem"]["w"]),
+            **{k: _q(qparams["stem"][k]) for k in ("b", "gamma", "beta")}}
+    return QuantizedTransformerNet(
+        stem=stem,
+        encoder=[in_conv(p) for p in qparams["encoder"]],
+        residual=[{k: in_conv(r[k]) for k in ("conv1", "conv2")} for r in qparams["residual"]],
+        decoder=[in_conv(p) for p in qparams["decoder"]],
+        output={"w": _q_conv_w(qparams["output"]["w"]), "b": _q(qparams["output"]["b"])},
+    )
+
+
+def quantized_classifier_from_jax(qparams: dict):
+    """JAX ``quantize_classifier`` pytree -> :class:`models.resnet_q.QuantizedClassifier`
+    with the same int8 codes, scales, folded biases and bf16 stem and head (on the CPU)."""
+    from artist_style_transfer_tpu_torch.models.resnet_q import QuantizedClassifier
+
+    def conv(p: dict) -> dict:
+        return {"wq": _q_conv_w(p["wq"]), "sw": _q(p["sw"]), "b": _q(p["b"])}
+
+    head = qparams["head"]
+    return QuantizedClassifier(
+        stem={"w": _q_conv_w(qparams["stem"]["w"]), "b": _q(qparams["stem"]["b"])},
+        stages=[[{k: conv(v) for k, v in block.items()} for block in stage]
+                for stage in qparams["stages"]],
+        head={**{bn: {k: _q(head[bn][k]) for k in ("gamma", "beta", "mean", "var")}
+                 for bn in ("bn1", "bn2")},
+              **{fc: {"w": _q(np.asarray(head[fc]["w"]).T), "b": _q(head[fc]["b"])}
+                 for fc in ("fc1", "fc2")}},
+    )

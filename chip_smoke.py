@@ -6,14 +6,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py             # every phase, one card
     python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
                                       # batch, 4 'cycle' training steps, an eval batch,
-                                      # 4 'classifier' training steps, 8 streamed steps
+                                      # 4 'classifier' training steps, 8 streamed steps,
+                                      # an int8 stylize batch and an int8 eval batch
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-0. header: torch/CUDA versions, the card (``nvidia-smi`` name and power
+0. header: torch/CUDA/Triton versions, the card (``nvidia-smi`` name and power
    limit), and both TF32 flags, which parity mode keeps False;
 1. build: compiles ``csrc/*.cu`` with nvcc (set-up time) and counts the
-   tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS;
+   tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS,
+   and K2's int8 ones (``IMMA``);
 2. gram: the Hopper Gram kernel against the plain PyTorch version at the
    VGG tap shapes of Gatys at 256x256 (N=1), of a training batch (224x224,
    N=4) and of a 512x512 batch of 4,
@@ -74,7 +76,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    replaying the resident permutation over 32 decoded images against
    ``train(content_images=...)`` (per-epoch losses within rtol 1e-3); one
    streamed step with the kernel against one without (within 1e-4);
-10. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+10. display: ``inference.py`` in its default display mode on the golden content
+    image, on the default device, with matplotlib made unimportable: the figure
+    (OpenCV's writer) exists, decodes at 1800x500 and holds 3 panels;
+11. int8: kernel K2 (``csrc/qconv.cu``, the int8 conv) against its plain f64
+    version on the real inputs of every conv of the main paths, recorded from one
+    ``stylize_int8`` at 512x512, B=4 and one int8 eval batch (the quantized
+    TransformerNet at 1024x1024 and the quantized ResNet-50 at 256x256, B=4): the
+    int32 epilogue exact, the bf16 one bit-equal to the bf16 of the exact sum, the
+    dequant within f32 rounding; each shape's K2 time (warm events, cold device),
+    the plain version's, cuDNN's bf16 conv of the same geometry and, for the 1x1
+    stride-1 shapes, ``torch._int_mm``, and its bound; a CUDA tensor with C_in not
+    a multiple of 32 refused; then ``stylize_int8`` on the golden image (> 45 dB
+    against the port's f32 stylize, > 35 dB against the golden), 16 K2 launches a
+    forward, and int8, bf16 and f32 ms/image at 512x512, B=4;
+    ``evaluate_with_classifier(quantize=True)`` on the eval phase's 16 seeded
+    1024x1024 images with a decisive classifier (its artist's logit raised by 100):
+    images/s, 68 K2 launches a batch, no K1 launch, the real pipeline's accuracy,
+    and 2 images' predictions against the port's CPU int8 pipeline (the seeded
+    classifier; skipped where the CPU's top-2 margin is under 2e-2 of max|logit|);
+    then ``inference.py --no-display --quantize`` on 4 JPEGs, whose ``Acc=`` must
+    equal a direct call's on the same files in the CLI's order;
+12. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read JPEGs (``eval``'s CLI step, ``data``). Without CUDA,
@@ -100,13 +123,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 GRAM_SOURCE = "artist_style_transfer_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "artist_style_transfer_tpu/ops/pallas/gram_kernel.py:60"  # gram_matrix_pallas
+QCONV_SOURCE = "artist_style_transfer_tpu_torch/csrc/qconv.cu"
+# The XLA int8 convs K2 replaces (PyTorch has no int8 conv on CUDA).
+QCONV_REPLACES = ("artist_style_transfer_tpu/models/transformer_q.py:62; "
+                  "artist_style_transfer_tpu/ops/qconv.py:68; "
+                  "artist_style_transfer_tpu/models/resnet_q.py:111")
 
 # Published dense peaks (NVIDIA data sheets) by H100 variant: FP32 outside
-# the tensor cores, TF32 and bf16 tensor cores, HBM bandwidth. At full power limit.
+# the tensor cores, TF32, bf16 and int8 (operations/s) tensor cores, HBM bandwidth.
+# At full power limit.
 PEAKS = {
-    "H100 SXM": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "hbm": 3.35e12},
-    "H100 PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12, "hbm": 2.0e12},
-    "H100 NVL": {"fp32": 60e12, "tf32": 418e12, "bf16": 835e12, "hbm": 3.9e12},
+    "H100 SXM": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "hbm": 3.35e12},
+    "H100 PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12, "int8": 1513e12, "hbm": 2.0e12},
+    "H100 NVL": {"fp32": 60e12, "tf32": 418e12, "bf16": 835e12, "int8": 1671e12, "hbm": 3.9e12},
 }
 # Host-side calls of a profiled window worth counting: the ones that wait for the device
 # (a synchronous copy ends in cudaStreamSynchronize), pin memory, or launch.
@@ -140,6 +169,13 @@ DATA_ARTISTS = (("Seeded Artist", 64), ("Second Artist", 8), ("Third Artist", 8)
 DATA_EPOCHS = 2
 DATA_PARITY_IMAGES = 32
 DATA_PROFILE_STEPS = 8
+# The int8 phase: the flagship stylize shape (512x512, B=4); the eval phase's images.
+INT8_SIZE = 512
+INT8_BATCH = 4
+INT8_CLI_IMAGES = 4
+# Launches of K2: 16 int8 convs a TransformerNet forward, 52 a ResNet-50 forward.
+QCONV_TRANSFORMER = 16
+QCONV_RESNET = 52
 
 
 def emit(phase: str, **fields) -> None:
@@ -242,8 +278,15 @@ def phase_header() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    try:  # recorded only: no kernel of the port is written in Triton
+        import triton
+
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
     emit(
         "header",
+        triton=triton_version,
         python=sys.version.split()[0],
         torch=torch.__version__,
         cuda=torch.version.cuda,
@@ -275,10 +318,12 @@ def phase_build() -> None:
     mma = {kind: sum(1 for ln in sass if "MMA" in ln and f".{kind.upper()}" in ln)
            for kind in ("tf32", "bf16")}
     ffma = sum(1 for ln in sass if " FFMA " in ln)
+    imma = sum(1 for ln in sass if "IMMA" in ln)  # K2's s8 x s8 -> s32 tensor-core MMAs
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"],
          nvcc_seconds=info["seconds"], library=str(lib_path), ptxas=ptxas,
-         sass_mma=mma, sass_ffma=ffma)
+         sass_mma=mma, sass_ffma=ffma, sass_imma=imma)
     require(all(v > 0 for v in mma.values()), f"no tensor-core MMA in the SASS of a dtype: {mma}")
+    require(imma > 0, "no IMMA (int8 tensor-core MMA) in the SASS of K2")
 
 
 def phase_gram(peaks: dict) -> dict:
@@ -1132,6 +1177,386 @@ def phase_data(size: int = TRAIN_SIZE, device: str | None = None,
     return cli_launches, stream_launches
 
 
+def panel_boxes(fig_bgr: np.ndarray) -> list[tuple[int, int]]:
+    """The (first, last) columns of each panel of a figure: runs of columns that hold a
+    non-white pixel in the middle band of rows, below the titles."""
+    h = fig_bgr.shape[0]
+    ink = (fig_bgr[int(h * 0.3):int(h * 0.7)] != 255).any(axis=(0, 2))
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], ink.astype(np.int8), [0]])))
+    return [(int(a), int(b) - 1) for a, b in zip(edges[::2], edges[1::2])]
+
+
+def phase_display() -> None:
+    """``inference.py`` in display mode (the reference's default) on the golden content
+    image, on the default device, with matplotlib made unimportable: OpenCV writes the
+    Content/Style/Transformed figure."""
+    import cv2
+
+    from artist_style_transfer_tpu_torch import inference
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_display_")
+    hidden = sys.modules.get("matplotlib", "absent")
+    sys.modules["matplotlib"] = None  # import matplotlib now raises, as where it is missing
+    try:
+        model_dir = os.path.join(tmp, "models", "Golden", "random")
+        os.makedirs(model_dir)
+        shutil.copy(os.path.join(GOLDENS, "golden_transfer.pth"), model_dir)
+        cv2.imwrite(os.path.join(model_dir, "style.jpg"),
+                    np.random.default_rng(6).integers(0, 256, (96, 128, 3), dtype=np.uint8))
+        t0 = time.perf_counter()
+        fig_path = inference.main([
+            "--artist", "Golden", "--style_method", "random", "--model_filename",
+            "golden_transfer.pth", "--model_dir", os.path.join(tmp, "models"), "--fig_dir",
+            os.path.join(tmp, "figs"), "--content_img",
+            os.path.join(GOLDENS, "content_landscape_256.png"), "--content_size_w", "256"])
+        seconds = time.perf_counter() - t0
+        fig = cv2.imread(fig_path)
+        require(fig is not None, f"display: no decodable figure at {fig_path}")
+        boxes = panel_boxes(fig)
+    finally:
+        if hidden == "absent":
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = hidden
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(fig.shape == (500, 1800, 3), f"display: figure shape {fig.shape}")
+    require(len(boxes) == 3, f"display: {len(boxes)} panels, not 3: {boxes}")
+    emit("display", figure=os.path.basename(fig_path), shape=list(fig.shape), panels=len(boxes),
+         panel_columns=boxes, writer="cv2", cv2=cv2.__version__, seconds=seconds)
+
+
+def record_qconv_calls(run) -> list[tuple]:
+    """Run ``run`` and return the arguments of every K2 launch it made, in order (the
+    tensors themselves: the main path's real inputs)."""
+    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
+
+    calls, real = [], qconv_kernel.conv_i8_cuda
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    qconv_kernel.conv_i8_cuda = recording
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        qconv_kernel.conv_i8_cuda = real
+    return calls
+
+
+def qconv_bound(x, w, y, stride, dil, peaks) -> tuple[float, float, float]:
+    """(operations ms, bytes ms, the conv's own MACs) of one K2 launch: x and w read once,
+    y written once; 2 operations a MAC at the dense int8 rate. A transpose conv (lhs
+    dilation > 1) counts its own MACs, each input pixel times k^2 * C_out, and not the
+    inserted zeros the kernel multiplies too."""
+    n, cin, h, wd = x.shape
+    cout, _, kh, kw = w.shape
+    if dil > 1:
+        macs = float(n) * h * wd * cin * cout * kh * kw
+    else:
+        macs = float(y.shape[0]) * y.shape[2] * y.shape[3] * cout * kh * kw * cin
+    nbytes = x.numel() + w.numel() + y.numel() * y.element_size()
+    return 2 * macs / peaks["int8"] * 1e3, nbytes / peaks["hbm"] * 1e3, macs
+
+
+def qconv_library(x, w, stride, lo, hi, dil, exact) -> dict:
+    """The yardsticks of one K2 shape: cuDNN's bf16 conv of the same geometry (the real
+    dtype's reference point; zero padding) and, for a 1x1 stride-1 conv, ``torch._int_mm``,
+    which computes the same int32 function in one call."""
+    import torch.nn.functional as F
+
+    xb = x.to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    k = w.shape[2]
+    if dil > 1:
+        wt = wb.transpose(0, 1).flip(2, 3).contiguous()
+        cudnn = lambda: F.conv_transpose2d(xb, wt, stride=dil, padding=k - 1 - lo,  # noqa: E731
+                                           output_padding=hi - lo)
+    else:
+        cudnn = lambda: F.conv2d(xb, wb, stride=stride, padding=lo)  # noqa: E731
+    out = {"cudnn_bf16_ms": time_ms(cudnn), "int_mm_ms": None}
+    if k == 1 and stride == 1 and dil == 1 and lo == hi == 0:
+        a = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+        b = w.view(w.shape[0], w.shape[1]).t()
+        try:
+            got = torch._int_mm(a, b)
+            out["int_mm_exact"] = bool(torch.equal(
+                got, exact.permute(0, 2, 3, 1).reshape(-1, w.shape[0])))
+            out["int_mm_ms"] = time_ms(lambda: torch._int_mm(a, b))
+        except RuntimeError as e:  # a yardstick only: record why it did not run
+            out["int_mm_error"] = str(e)[:200]
+    return out
+
+
+def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
+    """K2 against its plain f64 version on each distinct shape of ``calls`` (a path's
+    launches), in all three epilogues, and its times; returns the path's sums over its
+    launches (a shape counts as often as the path launches it)."""
+    from artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel import conv_i8_cuda
+    from artist_style_transfer_tpu_torch.ops.qconv import Dequant, apply_epilogue, conv_i8_plain
+
+    groups: dict[tuple, list] = {}
+    for args in calls:
+        x, w, stride, lo, hi, dil, reflect, out = args
+        kind = "dequant_" + str(out.dtype)[6:] if isinstance(out, Dequant) else str(out)[6:]
+        key = (tuple(x.shape), tuple(w.shape), stride, lo, hi, dil, reflect, kind)
+        groups.setdefault(key, [args, 0])[1] += 1
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "cudnn_bf16_ms")
+    sums = dict.fromkeys(keys, 0.0)
+    worst = {"s32_max_abs_err": 0, "bf16_mismatches": 0, "dequant_max_rel_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for key, (args, count) in groups.items():
+        x, w, stride, lo, hi, dil, reflect, out = args
+        mode = "reflect" if reflect else "zeros"
+        exact = conv_i8_plain(x, w, stride, (lo, hi), dil, mode)
+        k32 = conv_i8_cuda(x, w, stride, lo, hi, dil, reflect, torch.int32)
+        kbf = conv_i8_cuda(x, w, stride, lo, hi, dil, reflect, torch.bfloat16)
+        torch.cuda.synchronize()
+        s32_err = int((k32.long() - exact.long()).abs().max().item())
+        pbf = apply_epilogue(exact, torch.bfloat16)
+        bf16_bad = int((kbf.view(torch.int16) != pbf.view(torch.int16)).sum().item())
+        cout = w.shape[0]
+        dq = out if isinstance(out, Dequant) else Dequant(
+            torch.tensor(0.0123, device="cuda"),
+            torch.rand(cout, generator=gen, device="cuda") * 1e-3,
+            torch.randn(cout, generator=gen, device="cuda"), torch.float32)
+        dq_rel = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            d = dq._replace(dtype=dtype)
+            ref = apply_epilogue(exact, d).float()
+            got = conv_i8_cuda(x, w, stride, lo, hi, dil, reflect, d).float()
+            dq_rel = max(dq_rel, ((got - ref).abs().max() / ref.abs().max()).item())
+        require(s32_err == 0, f"K2 {path} {key}: int32 epilogue off by {s32_err}")
+        require(bf16_bad == 0, f"K2 {path} {key}: {bf16_bad} bf16 values not the exact sum's")
+        # f32 rounding: the kernel and the plain version round the same ops, so 0 is
+        # expected; one f32 ulp of the largest value is the bar.
+        require(dq_rel <= 2.0**-23, f"K2 {path} {key}: dequant rel err {dq_rel}")
+        worst["s32_max_abs_err"] = max(worst["s32_max_abs_err"], s32_err)
+        worst["bf16_mismatches"] += bf16_bad
+        worst["dequant_max_rel_err"] = max(worst["dequant_max_rel_err"], dq_rel)
+
+        run = lambda: conv_i8_cuda(*args)  # noqa: E731  (the main path's epilogue)
+        y = run()
+        ms = time_ms(run)
+        dev = device_ms(run, "qconv_kernel")
+        plain_ms = time_ms(lambda: conv_i8_plain(x, w, stride, (lo, hi), dil, mode, out),
+                           iters=3, warmup=1)
+        t_ops, t_bytes, macs = qconv_bound(x, w, y, stride, dil, peaks)
+        bound = max(t_ops, t_bytes)
+        require(dev >= bound / 1.05, f"K2 {path} {key}: device {dev} ms under the bound "
+                                     f"{bound} ms: the bound is miscounted")
+        lib = qconv_library(x, w, stride, lo, hi, dil, exact)
+        emit("qconv", path=path, x=list(x.shape), w=list(w.shape), stride=stride, pads=[lo, hi],
+             lhs_dilation=dil, pad_mode=mode, epilogue=key[-1], launches=count,
+             s32_max_abs_err=s32_err, bf16_mismatches=bf16_bad, dequant_max_rel_err=dq_rel,
+             ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+             bound_by="operations" if t_ops >= t_bytes else "bytes", bound_share=bound / dev,
+             gmac=macs / 1e9, tops=2 * macs / dev / 1e9, **lib)
+        for k, v in zip(keys, (ms, dev, plain_ms, bound, t_ops, t_bytes, lib["cudnn_bf16_ms"])):
+            sums[k] += v * count
+    return {**sums, **worst, "launches": len(calls), "shapes": len(groups)}
+
+
+def decisive_classifier(device: str, artist: int):
+    """The seeded classifier with ``artist``'s logit raised by 100, far above the int8
+    rounding, as JAX's ``tests/test_resnet_q.py:225-245`` makes it."""
+    clf = seeded_classifier("cpu")
+    with torch.no_grad():
+        clf.get_submodule("1").get_submodule("8").bias[artist] += 100.0
+    return clf.to(device)
+
+
+def phase_int8(peaks: dict, smi: str) -> dict:
+    """K2 against its plain version on the main paths' shapes, ``stylize_int8``, the int8
+    eval pipeline and the ``--quantize`` CLI; returns the kernels line's numbers."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import (
+        eval_logits,
+        evaluate_with_classifier,
+        quantize_eval_pipeline,
+    )
+    from artist_style_transfer_tpu_torch.infer.stylize import (
+        load_transfer_params,
+        stylize,
+        stylize_int8,
+    )
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
+    from artist_style_transfer_tpu_torch.models.transformer_q import quantize_transformer
+    from artist_style_transfer_tpu_torch.ops import qconv
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel, qconv_kernel
+    from artist_style_transfer_tpu_torch.utils.images import read_png
+
+    pth = os.path.join(GOLDENS, "golden_transfer.pth")
+    model = load_transfer_params(pth, device="cuda")
+    # Random calibration content, not the test image, as tests/test_quant.py draws it.
+    calib = (np.random.default_rng(7).random((2, 128, 128, 3)) * 255).astype(np.float32)
+    qmodel = quantize_transformer(model, calib)
+
+    # No CPU form, no fallback: a CUDA tensor K2 cannot take raises.
+    bad = torch.zeros((1, 48, 8, 8), dtype=torch.int8, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    try:
+        qconv.conv_i8(bad, torch.zeros((8, 48, 3, 3), dtype=torch.int8, device="cuda").contiguous(
+            memory_format=torch.channels_last), padding=1)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "multiple of 32" in refused,
+            f"int8: K2 took C_in = 48: {refused}")
+
+    # stylize_int8 on the golden image, against the port's f32 stylize and the golden.
+    content = read_png(os.path.join(GOLDENS, "content_landscape_256.png"))
+    golden = read_png(os.path.join(GOLDENS, "golden_stylized.png"))
+    out8 = stylize_int8(qmodel, content[None], device="cuda")[0].cpu().numpy()
+    out32 = stylize(model, content[None], device="cuda")[0].cpu().numpy()
+    db_f32, db_golden = psnr(out8, out32), psnr(out8, golden)
+    require(db_f32 > 45.0, f"int8: stylize_int8 vs the f32 stylize {db_f32} dB")
+    require(db_golden > 35.0, f"int8: stylize_int8 vs the golden {db_golden} dB")
+
+    # The stylize main path at 512x512, B=4: counters zeroed just before, read just after.
+    rng = np.random.default_rng(8)
+    batch = rng.integers(0, 256, (INT8_BATCH, INT8_SIZE, INT8_SIZE, 3), dtype=np.uint8)
+    stylize_int8(qmodel, batch, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    qconv_kernel.LAUNCHES = gram_kernel.LAUNCHES = 0
+    outs = stylize_int8(qmodel, batch, device="cuda")
+    torch.cuda.synchronize()
+    stylize_launches, stylize_k1 = qconv_kernel.LAUNCHES, gram_kernel.LAUNCHES
+    require(tuple(outs.shape) == batch.shape and outs.dtype == torch.uint8,
+            f"int8: stylize_int8 output {tuple(outs.shape)} {outs.dtype}")
+    require(stylize_launches == QCONV_TRANSFORMER and stylize_k1 == 0,
+            f"int8: stylize_int8 made {stylize_launches} K2 and {stylize_k1} K1 launches")
+    x = torch.as_tensor(batch, device="cuda")
+    model_bf16 = load_transfer_params(pth, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        per_image = {
+            "int8": time_ms(lambda: qmodel(x, accum=torch.bfloat16).float().clamp(0, 255)
+                            .to(torch.uint8), iters=10) / INT8_BATCH,
+            "bf16": time_ms(lambda: model_bf16(x.to(torch.bfloat16)).float().clamp(0, 255)
+                            .to(torch.uint8), iters=10) / INT8_BATCH,
+            "f32": time_ms(lambda: model(x.float()).clamp(0, 255).to(torch.uint8),
+                           iters=10) / INT8_BATCH,
+        }
+    emit("stylize_int8", size=INT8_SIZE, batch=INT8_BATCH, psnr_vs_f32_db=db_f32,
+         psnr_vs_golden_db=db_golden, k2_launches=stylize_launches, k1_launches=stylize_k1,
+         ms_per_image=per_image, card=smi, c_in_48_refused=refused)
+
+    # K2 against plain on the stylize path's 16 convs and an eval batch's 68.
+    images = eval_data()
+    artist = ARTISTS_19.index(CLF_ARTIST)
+    clf = seeded_classifier("cuda")
+    stylize_calls = record_qconv_calls(lambda: stylize_int8(qmodel, batch, device="cuda"))
+    qm_eval, qc_eval = quantize_eval_pipeline(model, clf, np.stack(images[:2]))
+    eval_calls = record_qconv_calls(lambda: eval_logits(
+        qm_eval, qc_eval, torch.as_tensor(np.stack(images[:CLF_BATCH]), device="cuda")))
+    require(len(stylize_calls) == QCONV_TRANSFORMER, f"int8: {len(stylize_calls)} stylize convs")
+    require(len(eval_calls) == QCONV_TRANSFORMER + QCONV_RESNET,
+            f"int8: {len(eval_calls)} convs in an eval batch")
+    shapes = {"stylize_512": check_qconv_shapes(stylize_calls, "stylize_512", peaks),
+              "eval_transformer_1024": check_qconv_shapes(eval_calls[:QCONV_TRANSFORMER],
+                                                          "eval_transformer_1024", peaks),
+              "eval_resnet_256": check_qconv_shapes(eval_calls[QCONV_TRANSFORMER:],
+                                                    "eval_resnet_256", peaks)}
+    del stylize_calls, eval_calls
+
+    # The int8 eval main path, with a decisive classifier: counters zeroed just before.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        decisive = decisive_classifier("cuda", artist)
+        kw = dict(batch_size=CLF_BATCH, wordy=False)
+        evaluate_with_classifier(model, decisive, images[:CLF_BATCH], artist, quantize=True, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        qconv_kernel.LAUNCHES = gram_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        acc_q = evaluate_with_classifier(model, decisive, images, artist, quantize=True, **kw)
+        seconds = time.perf_counter() - t0
+        eval_launches, eval_k1 = qconv_kernel.LAUNCHES, gram_kernel.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        acc_real = evaluate_with_classifier(model, decisive, images, artist, **kw)
+        batches = -(-EVAL_IMAGES // CLF_BATCH)
+        require(eval_launches == batches * (QCONV_TRANSFORMER + QCONV_RESNET),
+                f"int8 eval: {eval_launches} K2 launches, not {batches} x 68")
+        require(eval_k1 == 0, f"int8 eval: {eval_k1} K1 launches on a path with no Gram")
+        require(acc_q == acc_real, f"int8 eval: Acc={acc_q}, the real pipeline's {acc_real}")
+
+        # 2 images against the port's CPU int8 pipeline (the seeded classifier).
+        pair = np.stack(images[:EVAL_CPU_IMAGES])
+        card_logits = eval_logits(qm_eval, qc_eval, torch.as_tensor(pair, device="cuda")).float()
+        qm_cpu, qc_cpu = quantize_eval_pipeline(load_transfer_params(pth, device="cpu"),
+                                                seeded_classifier("cpu"), pair)
+        cpu_logits = eval_logits(qm_cpu, qc_cpu, torch.as_tensor(pair)).float()
+        top2 = cpu_logits.topk(2, dim=-1).values
+        margins = ((top2[:, 0] - top2[:, 1]) / cpu_logits.abs().max()).tolist()
+        compared = [i for i, m in enumerate(margins) if m >= 2e-2]
+        card_preds, cpu_preds = card_logits.argmax(-1).tolist(), cpu_logits.argmax(-1).tolist()
+        require(all(card_preds[i] == cpu_preds[i] for i in compared),
+                f"int8 eval: card predictions {card_preds} vs CPU {cpu_preds}")
+        cli = eval_cli_int8(tmp, pth, model, decisive, artist)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("eval_int8", images=EVAL_IMAGES, size=EVAL_SIZE, crop=CLF_SIZE, batch=CLF_BATCH,
+         accuracy=acc_q, real_accuracy=acc_real, seconds=seconds,
+         images_per_sec=EVAL_IMAGES / seconds, ms_per_image=seconds * 1e3 / EVAL_IMAGES,
+         k2_launches=eval_launches, k2_launches_per_batch=eval_launches / batches,
+         k1_launches=eval_k1, peak_mem_gib=peak_gib, card_preds=card_preds, cpu_preds=cpu_preds,
+         cpu_top2_margins=margins, cpu_compared=compared,
+         card_vs_cpu_logits_rel=rel_to_max(card_logits, cpu_logits), cli=cli, card=smi)
+    return {"shapes": shapes, "launches": {
+        "eval_int8": eval_launches, "stylize_int8": stylize_launches,
+        "eval_cli_int8": cli["k2_launches"]},
+        "k1_launches": {"stylize_int8": stylize_k1, "eval_int8": eval_k1}}
+
+
+def eval_cli_int8(tmp: str, pth: str, model, clf, artist: int) -> dict:
+    """``inference.py --no-display --quantize`` on INT8_CLI_IMAGES seeded JPEGs on the
+    default device: its ``Acc=`` against ``evaluate_with_classifier(quantize=True)`` on
+    the same files decoded by cv2 in the CLI's shuffled order (the first two calibrate)."""
+    import contextlib
+    import io
+    import random
+
+    import cv2
+
+    from artist_style_transfer_tpu_torch import inference
+    from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
+
+    content = os.path.join(tmp, "content")
+    model_dir = os.path.join(tmp, "models", CLF_ARTIST, "random")
+    os.makedirs(content)
+    os.makedirs(model_dir)
+    shutil.copy(pth, model_dir)
+    clf_path = os.path.join(tmp, "best-2.pth")
+    torch.save({"model": clf.state_dict()}, clf_path)
+    rng = np.random.default_rng(9)
+    for i in range(INT8_CLI_IMAGES):
+        cv2.imwrite(os.path.join(content, f"c{i}.jpg"),
+                    rng.integers(0, 256, (600, 800, 3), dtype=np.uint8))
+    out = io.StringIO()
+    qconv_kernel.LAUNCHES = 0
+    with contextlib.redirect_stdout(out):
+        acc = inference.main(["--no-display", "--quantize", "--artist", CLF_ARTIST,
+                              "--style_method", "random", "--model_filename",
+                              os.path.basename(pth), "--model_dir", os.path.join(tmp, "models"),
+                              "--content_dir", content, "--classifier_path", clf_path,
+                              "--seed", "0"])
+    launches = qconv_kernel.LAUNCHES
+    lines = out.getvalue().splitlines()
+    files = [f for f in os.listdir(content) if ".jpg" in f]
+    random.Random(0).shuffle(files)  # the CLI's order
+    direct = evaluate_with_classifier(
+        model, clf, [cv2.resize(cv2.imread(os.path.join(content, f)), (EVAL_SIZE, EVAL_SIZE))
+                     for f in files], artist, batch_size=CLF_BATCH, wordy=False, quantize=True)
+    require(f"Grabbed {INT8_CLI_IMAGES} images!" in lines and lines[-1] == f"Acc={acc}",
+            f"int8 eval CLI output: {lines[:2]} ... {lines[-1:]}")
+    require(acc == direct, f"int8 eval CLI Acc={acc} vs a direct call's {direct}")
+    require(launches == QCONV_TRANSFORMER + QCONV_RESNET,
+            f"int8 eval CLI: {launches} K2 launches for one batch")
+    return {"images": INT8_CLI_IMAGES, "accuracy": acc, "direct_accuracy": direct,
+            "k2_launches": launches}
+
+
 def sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -1243,8 +1668,10 @@ def profile_window(path: str, run, units: int, unit: str, timeline: bool = False
 def phase_profile() -> None:
     """Where the device time goes: 10 Gatys steps, one stylize batch of 4 at 512², one
     'cycle' training epoch of 4 steps at 224², B=4, one eval batch of 4 at 1024², one
-    'classifier' training epoch of 4 steps at 224², B=4, and 8 streamed 'cycle' steps at
-    224², B=4 (JPEGs decoded ahead, pinned copies on the copy stream)."""
+    'classifier' training epoch of 4 steps at 224², B=4, 8 streamed 'cycle' steps at
+    224², B=4 (JPEGs decoded ahead, pinned copies on the copy stream), an int8 stylize
+    batch of 4 at 512² and an int8 eval batch of 4 at 1024² (the quantized pair made
+    beforehand, as ``evaluate_with_classifier(quantize=True)`` makes it once a call)."""
     from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_batched
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
@@ -1274,6 +1701,20 @@ def phase_profile() -> None:
     profile_window("train_classifier", lambda: fns.epoch_fn(data, r22, perm, 0),
                    fns.steps_per_epoch, "step")
     profile_stream(vgg)
+    profile_int8(model, clf, batch, images)
+
+
+def profile_int8(model, clf, batch: list[np.ndarray], images: list[np.ndarray]) -> None:
+    from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, quantize_eval_pipeline
+    from artist_style_transfer_tpu_torch.infer.stylize import stylize_int8
+
+    qmodel, qclf = quantize_eval_pipeline(model, clf, np.stack(images[:2]))
+    stacked = np.stack(batch)
+    profile_window("stylize_int8", lambda: stylize_int8(qmodel, stacked, device="cuda"),
+                   len(batch), "image")
+    x = torch.as_tensor(np.stack(images), device="cuda")
+    profile_window("eval_int8", lambda: eval_logits(qmodel, qclf, x).argmax(-1).cpu(),
+                   len(images), "image")
 
 
 def profile_stream(vgg) -> None:
@@ -1320,9 +1761,18 @@ def main(argv=None) -> int:
     launches["train_classifier"] = phase_train_classifier(peaks)
     torch.cuda.reset_peak_memory_stats()
     launches["train_cli"], launches["train_stream"] = phase_data()
+    phase_display()
+    int8 = phase_int8(peaks, smi)
+    launches.update(int8["k1_launches"])
     if args.profile:
         phase_profile()
     print(smi, flush=True)
+    # K2's times: the sums over the 68 launches of one int8 eval batch (the main path).
+    k2 = {k: int8["shapes"]["eval_transformer_1024"][k] + int8["shapes"]["eval_resnet_256"][k]
+          for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                    "cudnn_bf16_ms")}
+    k2_err = {k: max(v[k] for v in int8["shapes"].values())
+              for k in ("s32_max_abs_err", "dequant_max_rel_err")}
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
@@ -1339,15 +1789,44 @@ def main(argv=None) -> int:
         "bound_by": "operations" if gram["ops_ms"] >= gram["bytes_ms"] else "bytes",
         "library_ms": gram["library_ms"],
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
-                        "count, its counter zeroed just before it; eval and train_classifier "
-                        "compute no Gram and must count 0; train_cli is the training CLI "
-                        "from directories, train_stream train() over content_file_stream",
+                        "count, its counter zeroed just before it; eval, train_classifier, "
+                        "stylize_int8 and eval_int8 compute no Gram and must count 0; "
+                        "train_cli is the training CLI from directories, train_stream "
+                        "train() over content_file_stream",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
                      f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16",
         "train_taps": gram["train_taps"],
         "train_taps_bf16": gram["train_taps_bf16"],
+        "peaks": variant,
+    }, {
+        "name": "qconv_i8",
+        "route": "cuda",
+        "source": QCONV_SOURCE,
+        "replaces": QCONV_REPLACES,
+        "launches": int8["launches"]["eval_int8"],
+        "launches_by_path": int8["launches"],
+        "max_abs_err": k2_err["s32_max_abs_err"],
+        "bf16_mismatches": sum(v["bf16_mismatches"] for v in int8["shapes"].values()),
+        "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
+        "ms": k2["ms"],
+        "device_ms": k2["device_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": "operations" if k2["ops_ms"] >= k2["bytes_ms"] else "bytes",
+        "library_ms": None,
+        "cudnn_bf16_ms": k2["cudnn_bf16_ms"],
+        "launches_are": "launches: the int8 eval main path (16 images, 4 batches of 68: 16 "
+                        "TransformerNet and 52 ResNet-50 convs), counter zeroed just before; "
+                        "stylize_int8 one 512x512 B=4 forward; eval_cli_int8 the --quantize "
+                        "CLI's one batch",
+        "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
+                     "1024x1024, ResNet-50 at 256x256, B=4); ms warm by CUDA events, device_ms "
+                     "cold-L2 by the profiler; library_ms null: no PyTorch call computes an "
+                     "int8 conv (torch._int_mm only its 1x1 shapes, in the qconv lines); "
+                     "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference",
+        "paths": int8["shapes"],
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

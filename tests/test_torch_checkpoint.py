@@ -243,10 +243,6 @@ UNPORTED = [
     (dict(qat=True), "int8 slice"),
     (dict(quantize_loss=True), "int8 slice"),
     (dict(quantize_gram=True), "int8 slice"),
-    (dict(fold_batch=True), "later slice"),
-    (dict(remat=True), "later slice"),
-    (dict(preview_every=1), "later slice"),
-    (dict(profile_dir="prof"), "later slice"),
 ]
 
 

@@ -356,8 +356,6 @@ def test_evaluate_with_classifier_matches_jax(eval_setup, capsys):
 def test_evaluate_with_classifier_refusals(eval_setup):
     s = eval_setup
     args = (s["model"], s["classifier"], s["images"][:1], 0)
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        evaluate_with_classifier(*args, quantize=True, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel slice"):
         evaluate_with_classifier(*args, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not on"):
@@ -412,8 +410,13 @@ def test_inference_cli_no_display_matches_direct_call(tmp_path, capsys, resize):
             str(tmp_path / "best-2.pth"), "cpu"), images[:3],
         ARTISTS_19.index("Pablo_Picasso"), wordy=False, device="cpu")
     assert acc == direct
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        inference.main(argv + ["--quantize"])
+    # --quantize: the int8 pipeline, the Acc= of a direct quantized call on the same images.
+    acc_q = inference.main(argv + ["--quantize"] + ([] if resize else ["--no-resize_imgs"]))
+    assert capsys.readouterr().out.rstrip().endswith(f"Acc={acc_q}")
+    assert acc_q == evaluate_with_classifier(
+        load_transfer_params(str(model_dir / "t.pth"), "cpu"), load_classifier(
+            str(tmp_path / "best-2.pth"), "cpu"), images[:3],
+        ARTISTS_19.index("Pablo_Picasso"), wordy=False, quantize=True, device="cpu")
     assert argv[-2:] == ["--device", "cpu"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -195,7 +195,7 @@ def test_load_vgg16_ignores_layers_past_relu4_3(tmp_path):
         torch.testing.assert_close(loaded.state_dict()[k], v, rtol=0, atol=0)
 
 
-def test_inference_cli_display_on_cpu(tmp_path):
+def test_inference_cli_display_on_cpu(tmp_path, monkeypatch):
     cv2 = pytest.importorskip("cv2")
     pytest.importorskip("matplotlib")
     import shutil
@@ -206,14 +206,17 @@ def test_inference_cli_display_on_cpu(tmp_path):
     model_dir.mkdir(parents=True)
     shutil.copy(os.path.join(GOLDENS, "golden_transfer.pth"), model_dir / "g.pth")
     cv2.imwrite(str(model_dir / "style.jpg"), np.zeros((8, 8, 3), np.uint8))
-    fig = inference.main([
+    argv = [
         "--artist", "Golden", "--model_filename", "g.pth",
         "--model_dir", str(tmp_path / "models"), "--fig_dir", str(tmp_path / "figs"),
         "--content_img", os.path.join(GOLDENS, "content_landscape_256.png"),
         "--content_size_w", "64", "--blur", "--sharpen", "--device", "cpu",
-    ])
+    ]
+    fig = inference.main(argv)
     assert os.path.exists(fig) and fig.endswith("Golden_random.png")
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        inference.main(["--no-display", "--quantize", "--device", "cpu"])
+    # --show on a host without a display writes the same figure and opens nothing.
+    os.remove(fig)
+    monkeypatch.delenv("DISPLAY", raising=False)
+    assert inference.main(argv + ["--show"]) == fig and os.path.exists(fig)
     with pytest.raises(NotImplementedError):
         inference.main(["--model_filename", "missing.pth", "--device", "cpu"])

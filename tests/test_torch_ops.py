@@ -278,7 +278,7 @@ def test_build_needs_nvcc():
     with pytest.raises(RuntimeError, match="nvcc"):
         tbuild.build()
     assert len(tbuild.source_hash()) == 64
-    assert [p.name for p in tbuild._sources()] == ["gram.cu"]
+    assert [p.name for p in tbuild._sources()] == ["gram.cu", "qconv.cu"]
 
 
 def test_precision_sets_tf32_flags():
@@ -301,3 +301,37 @@ def test_resolve_device():
             resolve_device(None)
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+def test_build_runs_one_nvcc_a_source_then_links(tmp_path, monkeypatch):
+    """A stand-in nvcc records its calls: every source compiles in its own process
+    (``-c``), the objects link into one library (``-shared``), the stamp is written,
+    and a failing compile raises with its command."""
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'case "$*" in *broken*) echo "error: broken"; exit 2;; esac\n'
+        'while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then : > "$2"; fi; shift; done\n'
+        'echo "ptxas info    : Used 8 registers"\n'
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(tbuild, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "build")
+    lib = tbuild.build()
+    assert lib == tmp_path / "build" / tbuild.LIB_NAME and lib.exists()
+    assert (tmp_path / "build" / (tbuild.LIB_NAME + ".sha256")).read_text().strip() == \
+        tbuild.source_hash()
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in ln]
+    assert len(compiles) == len(tbuild._sources()) == 2
+    assert [ln.split()[-1].split("/")[-1] for ln in compiles] == ["gram.cu", "qconv.cu"]
+    assert lines[-1].count(".o") == 2 and "-shared" in lines[-1]
+    assert tbuild.last_build["built"] and "ptxas info" in tbuild.last_build["log"]
+    assert tbuild.build() == lib and not tbuild.last_build["built"]  # up to date: no nvcc
+    assert len(calls.read_text().splitlines()) == 3
+    monkeypatch.setattr(tbuild, "source_hash", lambda: "changed")
+    monkeypatch.setattr(tbuild, "NVCC_FLAGS", (*tbuild.NVCC_FLAGS, "-Dbroken"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tbuild.build()

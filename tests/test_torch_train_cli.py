@@ -85,10 +85,6 @@ LATER = [
     (["--quantize_loss"], "int8 slice"),
     (["--qat"], "int8 slice"),
     (["--quantize_gram", "on"], "int8 slice"),
-    (["--fold_batch", "on"], "later slice"),
-    (["--fold_batch", "vgg"], "later slice"),
-    (["--preview_every", "1"], "later slice"),
-    (["--profile_dir", "prof"], "later slice"),
 ]
 
 
@@ -97,6 +93,27 @@ def test_cli_flags_of_later_slices_reach_train(ws, tmp_path, flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli(ws, tmp_path, "--style_method", "cycle", *flags)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+DONE = [["--fold_batch", "on"], ["--fold_batch", "vgg"], ["--preview_every", "1"],
+        ["--profile_dir"]]
+
+
+@pytest.mark.parametrize("flags", DONE, ids=["".join(f) for f in DONE])
+def test_cli_flags_of_done_items_run(ws, tmp_path, flags):
+    """The flags of ROADMAP item 16 reach ``train()``, which now runs them: the fold is
+    the direct path (the same losses), a preview figure every epoch, a trace of epoch 2."""
+    if flags == ["--profile_dir"]:
+        flags = flags + [str(tmp_path / "prof")]
+    _, losses = cli(ws, tmp_path / "a", "--style_method", "random", *flags)
+    d = tmp_path / "a" / ARTIST / "random"
+    if flags[0] == "--fold_batch":
+        _, plain = cli(ws, tmp_path / "b", "--style_method", "random")
+        np.testing.assert_array_equal(losses, plain)
+    elif flags[0] == "--preview_every":
+        assert {"preview_0.png", "preview_1.png"} <= set(os.listdir(d))
+    else:
+        assert os.listdir(tmp_path / "prof") == ["trace_epoch2.json"]
 
 
 def test_cli_defaults_match_the_jax_cli():
