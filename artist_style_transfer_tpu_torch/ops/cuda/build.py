@@ -112,7 +112,7 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.ast_gram.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
             lib.ast_gram.restype = i
-            lib.ast_qconv.argtypes = [p, p, p] + [i] * 14 + [p, p, p, p]
+            lib.ast_qconv.argtypes = [p] * 10 + [i, p]
             lib.ast_qconv.restype = i
             lib.ast_error_string.argtypes = [i]
             lib.ast_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,10 @@ to even):
 
 :func:`conv_i8` convolves int8 codes into the exact int32 sum and sends a CUDA
 tensor to the hand-written Hopper kernel K2
-(:mod:`artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel`), a CPU tensor to
-the plain version beside it, :func:`conv_i8_plain`. Its ``out`` picks the
+(:mod:`artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel`: an implicit GEMM
+on the s8 warpgroup MMA, ``wgmma``, with the lhs-dilated convs split into their
+sub-pixel classes), a CPU tensor to the plain version beside it,
+:func:`conv_i8_plain`. Its ``out`` picks the
 epilogue: the int32 sum, its bf16 rounding (JAX ``accum=bfloat16``), or the
 dequantized ``acc * (s_in * sw) + b`` (:class:`Dequant`). The absmax and the
 quantize stay torch ops, as JAX runs them in XLA outside any kernel.
@@ -168,11 +170,13 @@ def conv_i8(
     :func:`conv_i8_plain`. Nothing falls back from one to the other.
     """
     lo, hi = _pads(padding)
-    _check(xq, wq, stride, lo, hi, lhs_dilation, pad_mode)
-    if xq.is_cuda:
+    if xq.is_cuda:  # K2 makes the other checks once a shape, with its plan
+        if pad_mode not in PAD_MODES:
+            raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
         from artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel import conv_i8_cuda
 
         return conv_i8_cuda(xq, wq, stride, lo, hi, lhs_dilation, pad_mode == "reflect", out)
+    _check(xq, wq, stride, lo, hi, lhs_dilation, pad_mode)
     if wq.is_cuda:
         raise ValueError("conv_i8: x is on the CPU and w on CUDA")
     return conv_i8_plain(xq, wq, stride, (lo, hi), lhs_dilation, pad_mode, out)

@@ -14,8 +14,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 0. header: torch/CUDA/Triton versions, the card (``nvidia-smi`` name and power
    limit), and both TF32 flags, which parity mode keeps False;
 1. build: compiles ``csrc/*.cu`` with nvcc (set-up time) and counts the
-   tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS,
-   and K2's int8 ones (``IMMA``);
+   tensor-core MMA instructions (``HGMMA``, ``HMMA``) of each dtype in the SASS;
+   K2's s8 warpgroup MMA (``IGMMA``) in each of its instantiations, no ``mma.sync``
+   int8 MMA (``IMMA``) anywhere; each kernel's registers, shared memory and
+   spills (``ptxas -v``);
 2. gram: the Hopper Gram kernel against the plain PyTorch version at the
    VGG tap shapes of Gatys at 256x256 (N=1), of a training batch (224x224,
    N=4) and of a 512x512 batch of 4,
@@ -84,7 +86,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``stylize_int8`` at 512x512, B=4 and one int8 eval batch (the quantized
     TransformerNet at 1024x1024 and the quantized ResNet-50 at 256x256, B=4): the
     int32 epilogue exact, the bf16 one bit-equal to the bf16 of the exact sum, the
-    dequant within f32 rounding; each shape's K2 time (warm events, cold device),
+    dequant within f32 rounding; each shape's plan (tile, sub-pixel classes, split-K)
+    and K2 time (warm events, cold device),
     the plain version's, cuDNN's bf16 conv of the same geometry and, for the 1x1
     stride-1 shapes, ``torch._int_mm``, and its bound; a CUDA tensor with C_in not
     a multiple of 32 refused; then ``stylize_int8`` on the golden image (> 45 dB
@@ -304,26 +307,73 @@ def phase_header() -> str:
     return smi
 
 
+def sass_by_function(lib_path) -> dict[str, list[str]]:
+    """``cuobjdump -sass`` of the kernel library, its lines grouped by kernel (mangled name)."""
+    from artist_style_transfer_tpu_torch.ops.cuda import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    lines = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    funcs: dict[str, list[str]] = {}
+    current = None
+    for ln in lines:
+        if "Function : " in ln:
+            current = ln.split("Function : ", 1)[1].strip()
+            funcs[current] = []
+        elif current is not None:
+            funcs[current].append(ln)
+    return funcs
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's registers, shared memory and spills from ``nvcc --ptxas-options=-v``."""
+    import re
+
+    out, current = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
+        if m:
+            if current is None or current["function"] != m.group(1):
+                current = {"function": m.group(1)}
+                out.append(current)
+            continue
+        if current is None:
+            continue
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                current[key] = int(m.group(1))
+    return [r for r in out if "registers" in r]
+
+
 def phase_build() -> None:
     from artist_style_transfer_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
     build.library()
     info = build.last_build
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "smem" in ln]
     lib_path = build.BUILD_DIR / build.LIB_NAME
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout.splitlines()
+    funcs = sass_by_function(lib_path)
+    sass = [ln for body in funcs.values() for ln in body]
     mma = {kind: sum(1 for ln in sass if "MMA" in ln and f".{kind.upper()}" in ln)
            for kind in ("tf32", "bf16")}
     ffma = sum(1 for ln in sass if " FFMA " in ln)
-    imma = sum(1 for ln in sass if "IMMA" in ln)  # K2's s8 x s8 -> s32 tensor-core MMAs
+    # K2: the s8 warpgroup MMA (IGMMA) in every instantiation, and no mma.sync IMMA left.
+    k2 = {name: body for name, body in funcs.items() if "qconv_kernel" in name}
+    igmma = {name: sum(1 for ln in body if "IGMMA" in ln) for name, body in k2.items()}
+    imma = sum(1 for ln in sass if "IMMA" in ln)
+    ptxas = ptxas_report(info["log"]) if info["built"] else []
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"],
          nvcc_seconds=info["seconds"], library=str(lib_path), ptxas=ptxas,
-         sass_mma=mma, sass_ffma=ffma, sass_imma=imma)
+         sass_mma=mma, sass_ffma=ffma, k2_instantiations=len(k2),
+         sass_igmma=sum(igmma.values()), sass_imma=imma)
     require(all(v > 0 for v in mma.values()), f"no tensor-core MMA in the SASS of a dtype: {mma}")
-    require(imma > 0, "no IMMA (int8 tensor-core MMA) in the SASS of K2")
+    require(len(k2) > 0 and all(v > 0 for v in igmma.values()),
+            f"K2 instantiations without the s8 warpgroup MMA (IGMMA) in their SASS: {igmma}")
+    require(imma == 0, f"{imma} IMMA (mma.sync int8) left in the kernel library")
 
 
 def phase_gram(peaks: dict) -> dict:
@@ -1293,7 +1343,7 @@ def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
     """K2 against its plain f64 version on each distinct shape of ``calls`` (a path's
     launches), in all three epilogues, and its times; returns the path's sums over its
     launches (a shape counts as often as the path launches it)."""
-    from artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel import conv_i8_cuda
+    from artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel import conv_i8_cuda, plan_for
     from artist_style_transfer_tpu_torch.ops.qconv import Dequant, apply_epilogue, conv_i8_plain
 
     groups: dict[tuple, list] = {}
@@ -1349,6 +1399,7 @@ def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
         lib = qconv_library(x, w, stride, lo, hi, dil, exact)
         emit("qconv", path=path, x=list(x.shape), w=list(w.shape), stride=stride, pads=[lo, hi],
              lhs_dilation=dil, pad_mode=mode, epilogue=key[-1], launches=count,
+             plan=plan_for(x, w, stride, lo, hi, dil, reflect).describe(),
              s32_max_abs_err=s32_err, bf16_mismatches=bf16_bad, dequant_max_rel_err=dq_rel,
              ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
              bound_by="operations" if t_ops >= t_bytes else "bytes", bound_share=bound / dev,
@@ -1822,10 +1873,13 @@ def main(argv=None) -> int:
                         "stylize_int8 one 512x512 B=4 forward; eval_cli_int8 the --quantize "
                         "CLI's one batch",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
-                     "1024x1024, ResNet-50 at 256x256, B=4); ms warm by CUDA events, device_ms "
+                     "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
+                     "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
+                     "run inside it; ms warm by CUDA events, device_ms "
                      "cold-L2 by the profiler; library_ms null: no PyTorch call computes an "
                      "int8 conv (torch._int_mm only its 1x1 shapes, in the qconv lines); "
-                     "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference",
+                     "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference; "
+                     "paths holds each path's sums, and each qconv line its shape's plan",
         "paths": int8["shapes"],
         "peaks": variant,
     }]}), flush=True)

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port, and its PNG reader against OpenCV.
 
-The port, ``chip_smoke.py`` and ``bench_gram.py`` must import neither JAX nor
-the JAX package.
+The port, ``chip_smoke.py``, ``bench_gram.py`` and ``bench_qconv.py`` must
+import neither JAX nor the JAX package.
 The check is a static ``ast`` scan of the source, so a ``sitecustomize``
 that pre-imports JAX cannot hide an import. ``artist_style_transfer_tpu_torch``
 starts with the JAX package's name, so a module counts only when it *is*
@@ -49,7 +49,8 @@ def imported_modules(path: pathlib.Path) -> list[str]:
 
 
 def port_files() -> list[pathlib.Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_gram.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_gram.py",
+                                          ROOT / "bench_qconv.py"]
 
 
 @pytest.mark.parametrize(
