@@ -13,8 +13,6 @@ kernel K2.
 
 from __future__ import annotations
 
-import itertools
-
 import numpy as np
 import torch
 
@@ -26,7 +24,7 @@ from artist_style_transfer_tpu_torch.models.transformer_q import (
     quantize_transformer,
 )
 from artist_style_transfer_tpu_torch.ops.image import bgr_to_rgb, center_crop, torchvision_normalize
-from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
+from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 
 
 def eval_logits(
@@ -63,12 +61,6 @@ def quantize_eval_pipeline(
     """
     return (quantize_transformer(model, np.asarray(calib_images, np.float32)),
             quantize_classifier(classifier))
-
-
-def _device_of(net: torch.nn.Module) -> torch.device:
-    """Where a net lives: its first parameter's device, or its first buffer's (the
-    quantized nets hold buffers only)."""
-    return next(itertools.chain(net.parameters(), net.buffers())).device
 
 
 def evaluate_with_classifier(
@@ -109,7 +101,7 @@ def evaluate_with_classifier(
             "mesh (data-parallel eval) comes with the port's parallel slice (ROADMAP Queue 1 item 12)")
     dev = resolve_device(device)
     for name, net in (("model", model), ("classifier", classifier)):
-        net_dev = _device_of(net)
+        net_dev = module_device(net)
         if not same_device(net_dev, dev):
             raise ValueError(f"{name} is on {net_dev}, not on {dev}")
     if quantize:

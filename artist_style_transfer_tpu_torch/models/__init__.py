@@ -23,8 +23,12 @@ from artist_style_transfer_tpu_torch.models.transformer_q import (  # noqa: F401
     quantize_transformer,
     transformer_apply_int8,
 )
+from artist_style_transfer_tpu_torch.models.transformer_qat import transformer_apply_qat  # noqa: F401
 from artist_style_transfer_tpu_torch.models.vgg import (  # noqa: F401
     VGG_LAYER_NAMES,
+    QuantizedVGG16Features,
     VGG16Features,
     init_vgg16,
+    quantize_vgg16_loss,
+    vgg_is_quantized,
 )

@@ -1,8 +1,7 @@
 """Content, Gram style and classifier losses (counterpart of the JAX ``ops/losses.py``).
 
-Unfolded and unquantized: the batch->H fold and the int8 Gram of the JAX
-module are TPU layout and int8 work that belong to later slices. MSE has
-``nn.MSELoss`` semantics: the mean over all elements, in f32.
+Unfolded: the batch->H fold of the JAX module is a TPU layout rewrite of the same
+math. MSE has ``nn.MSELoss`` semantics: the mean over all elements, in f32.
 """
 
 from __future__ import annotations
@@ -10,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from artist_style_transfer_tpu_torch.models.vgg import VGG_LAYER_NAMES
-from artist_style_transfer_tpu_torch.ops.gram import gram_matrix
+from artist_style_transfer_tpu_torch.ops.gram import gram_matrix, gram_matrix_int8
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -26,6 +25,7 @@ def style_loss_gram(
     gen_features: dict[str, torch.Tensor],
     target_grams: dict[str, torch.Tensor],
     use_kernel: str | bool = "auto",
+    quantize: bool = False,
 ) -> torch.Tensor:
     """Sum over the four VGG taps of MSE(gram(gen), target) (train_cnn.py:321-325).
 
@@ -35,10 +35,19 @@ def style_loss_gram(
     layout constraint cost TPU layout copies of the taps; Hopper has no such
     constraint, so the kernel is the Gatys loop's hot op, four launches per
     step.
+
+    ``quantize`` (the quantized-loss training path) sends the taps with C >= 256,
+    relu3_3 and relu4_3, through the int8 Gram (:func:`ops.gram.gram_matrix_int8`),
+    as JAX gates it; the shallow taps keep the Gram kernel.
     """
     loss = None
     for name in VGG_LAYER_NAMES:
-        term = mse(gram_matrix(gen_features[name], use_kernel=use_kernel), target_grams[name])
+        feats = gen_features[name]
+        if quantize and feats.shape[-1] >= 256:
+            g = gram_matrix_int8(feats)
+        else:
+            g = gram_matrix(feats, use_kernel=use_kernel)
+        term = mse(g, target_grams[name])
         loss = term if loss is None else loss + term
     return loss
 

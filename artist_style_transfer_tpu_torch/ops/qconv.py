@@ -24,8 +24,23 @@ quantize stay torch ops, as JAX runs them in XLA outside any kernel.
 Tensors are NCHW in the ``channels_last`` memory format, the port's layout:
 int8 activations are NHWC in memory and weights (C_out, kh, kw, C_in).
 
-The STE backward of :func:`conv2d_frozen_int8` (K2's data gradient) belongs
-to ROADMAP Queue 1 item 10b; until then reaching for its gradient raises.
+Two differentiable convs, each one ``torch.autograd.Function`` with the
+straight-through estimator (STE) of JAX's custom VJPs, which passes the
+cotangent through the rounding and the clip unchanged:
+
+- :func:`conv2d_frozen_int8` for a frozen layer (the VGG16 loss extractor, the
+  quantized classifier): no weight or bias gradient;
+- :func:`conv2d_qat_int8` for a trained layer (the QAT TransformerNet): the
+  weight and bias gradients are real-dtype, of the dequantized forward, the
+  weight's on cuDNN.
+
+Both compute the data gradient as a second int8 conv on the same codes: the
+per-output-channel weight scales fold into the cotangent (exact: they factor
+out of the C_out contraction), which is quantized with a dynamic scale and
+convolved with the flipped, transposed codes (:func:`_dgrad`). A strided
+forward's dgrad is lhs-dilated by the stride with the pads of
+:func:`_dgrad_pad`; an lhs-dilated forward's dgrad has the dilation as its
+window stride. On CUDA both convs are K2's.
 """
 
 from __future__ import annotations
@@ -36,8 +51,6 @@ import torch
 import torch.nn.functional as F
 
 PAD_MODES = ("zeros", "reflect")
-_ITEM_10B = ("the int8 data gradient (the STE backward of conv2d_frozen_int8) comes with "
-            "the port's int8 loss slice (ROADMAP Queue 1 item 10b)")
 
 
 class Dequant(NamedTuple):
@@ -182,6 +195,71 @@ def conv_i8(
     return conv_i8_plain(xq, wq, stride, (lo, hi), lhs_dilation, pad_mode, out)
 
 
+def _dgrad_pad(i_size: int, o_size: int, k: int, stride: int, lhs_d: int,
+               lo: int) -> tuple[int, int]:
+    """Pads (lo, hi) of the data-gradient conv of a forward conv with window ``stride``,
+    low pad ``lo`` and lhs dilation ``lhs_d`` that maps ``i_size`` inputs to ``o_size``
+    outputs (JAX ``ops/qconv.py:_dgrad_pad``).
+
+    The dgrad runs over dy lhs-dilated by ``stride``, with window stride ``lhs_d``;
+    its high pad is solved so that it gives exactly ``i_size`` outputs.
+    """
+    p_lo = k - 1 - lo
+    dil_o = stride * (o_size - 1) + 1
+    p_hi = lhs_d * (i_size - 1) + k - dil_o - p_lo
+    return p_lo, p_hi
+
+
+_ones_cache: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _unit_scales(n: int, device: torch.device) -> torch.Tensor:
+    """(n,) f32 ones on ``device``: the per-channel scales of a dequant by one scalar."""
+    ones = _ones_cache.get((n, device))
+    if ones is None:
+        ones = _ones_cache[(n, device)] = torch.ones(n, dtype=torch.float32, device=device)
+    return ones
+
+
+def _dgrad(dy: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, in_hw: tuple[int, int],
+           stride: int, lo: int, lhs_d: int) -> torch.Tensor:
+    """The STE data gradient of ``conv_i8(quant(x), wq, stride, (lo, _), lhs_d)``
+    dequantized by ``sw``: ``dx = conv_i8(quant(dy * sw), flipT(wq)) * s_dy``, as JAX
+    ``_q_bwd`` and ``_qat_bwd`` compute it, in ``dy.dtype``.
+
+    The high pad is solved per axis; where the two axes' differ (a non-square input),
+    the larger one runs and the extra outputs past the input's extent are cut off.
+    """
+    k = wq.shape[2]
+    dyp = dy.float() * sw.view(1, -1, 1, 1)
+    s_dy = absmax_scale(dyp)
+    dq = quant_i8(dyp, s_dy).contiguous(memory_format=torch.channels_last)
+    w_t = wq.flip(2, 3).transpose(0, 1).contiguous(memory_format=torch.channels_last)
+    pads = [_dgrad_pad(i, o, k, stride, lhs_d, lo) for i, o in zip(in_hw, dy.shape[2:])]
+    hi = max(p[1] for p in pads)
+    dx = conv_i8(dq, w_t, lhs_d, (pads[0][0], hi), stride,
+                 out=Dequant(s_dy, _unit_scales(w_t.shape[0], dq.device), None, dy.dtype))
+    if tuple(dx.shape[2:]) != tuple(in_hw):
+        dx = dx[:, :, : in_hw[0], : in_hw[1]]
+    return dx
+
+
+class _FrozenInt8Conv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, sw, b, padding, stride):
+        s_in = absmax_scale(x)
+        ctx.save_for_backward(wq, sw)
+        ctx.geometry = (tuple(x.shape[2:]), padding, stride)
+        return conv_i8(quant_i8(x, s_in), wq, stride, padding,
+                       out=Dequant(s_in, sw, b, x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        wq, sw = ctx.saved_tensors
+        in_hw, padding, stride = ctx.geometry
+        return _dgrad(dy, wq, sw, in_hw, stride, padding, 1), None, None, None, None, None
+
+
 def conv2d_frozen_int8(
     x: torch.Tensor,
     wq: torch.Tensor,
@@ -190,15 +268,82 @@ def conv2d_frozen_int8(
     padding: int = 1,
     stride: int = 1,
 ) -> torch.Tensor:
-    """Zero-padded conv of a FROZEN layer in int8 (forward of JAX ``conv2d_frozen_int8``).
+    """Zero-padded conv of a FROZEN layer in int8 (JAX ``conv2d_frozen_int8``).
 
-    ``dequant(conv(quant(x), wq)) + b`` with a dynamic per-tensor input scale:
-    ``acc * (s_in * sw) + b`` in f32, cast to ``x.dtype``. Forward only: on an
-    input that requires grad it raises ``NotImplementedError`` (the STE data
-    gradient is ROADMAP item 10b); it never falls back to a real-dtype conv.
+    Forward: ``dequant(conv(quant(x), wq)) + b`` with a dynamic per-tensor input
+    scale, ``acc * (s_in * sw) + b`` in f32, cast to ``x.dtype``. Backward (STE): the
+    data gradient as a second int8 conv (:func:`_dgrad`); ``wq``, ``sw`` and ``b``
+    get none (the layer is frozen). Neither direction falls back to a real-dtype conv.
     """
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(_ITEM_10B)
-    s_in = absmax_scale(x)
-    return conv_i8(quant_i8(x, s_in), wq, stride, padding,
-                   out=Dequant(s_in, sw, b, x.dtype))
+    return _FrozenInt8Conv.apply(x, wq, sw, b, padding, stride)
+
+
+def _weight_grad(xhat: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, stride: int, lo: int,
+                 hi: int, lhs_d: int) -> torch.Tensor:
+    """The real-dtype weight gradient of ``conv(xhat, w)`` with pads (lo, hi) and lhs
+    dilation ``lhs_d``, on cuDNN (``aten.convolution_backward``, the weight alone).
+
+    An lhs-dilated conv is the transpose conv of the flipped, swapped weight with
+    padding ``k - 1 - lo`` and output padding ``hi - lo``: its weight gradient is
+    taken in that form and turned back.
+    """
+    mask = [False, True, False]
+    if lhs_d == 1:
+        if lo != hi:
+            xhat, lo = F.pad(xhat, (lo, hi, lo, hi)), 0
+        return torch.ops.aten.convolution_backward(
+            dy, xhat, w, None, [stride] * 2, [lo] * 2, [1, 1], False, [0, 0], 1, mask)[1]
+    k = w.shape[2]
+    if stride != 1 or not 0 <= lo <= k - 1 or not 0 <= hi - lo < lhs_d:
+        raise ValueError(f"conv2d_qat_int8: an lhs-dilated conv takes stride 1, 0 <= lo < k "
+                         f"and 0 <= hi - lo < lhs_dilation, got {stride}, {(lo, hi)}, {lhs_d}")
+    w_t = w.flip(2, 3).transpose(0, 1)
+    dw_t = torch.ops.aten.convolution_backward(
+        dy, xhat, w_t, None, [lhs_d] * 2, [k - 1 - lo] * 2, [1, 1], True, [hi - lo] * 2, 1,
+        mask)[1]
+    return dw_t.transpose(0, 1).flip(2, 3)
+
+
+class _QatInt8Conv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, stride, lo, hi, lhs_d):
+        s_x = absmax_scale(x)
+        xq = quant_i8(x, s_x).contiguous(memory_format=torch.channels_last)
+        wq, sw = quant_weight(w)
+        ctx.save_for_backward(xq, s_x, wq, sw, w)
+        ctx.geometry = (stride, lo, hi, lhs_d, b.dtype)
+        return conv_i8(xq, wq, stride, (lo, hi), lhs_d, out=Dequant(s_x, sw, b.float(), x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        xq, s_x, wq, sw, w = ctx.saved_tensors
+        stride, lo, hi, lhs_d, b_dtype = ctx.geometry
+        xhat = (xq.float() * s_x).to(dy.dtype)
+        dw = _weight_grad(xhat, dy, w.to(dy.dtype), stride, lo, hi, lhs_d)
+        db = dy.float().sum((0, 2, 3))
+        dx = _dgrad(dy, wq, sw, tuple(xq.shape[2:]), stride, lo, lhs_d)
+        return dx, dw.to(w.dtype), db.to(b_dtype), None, None, None, None
+
+
+def conv2d_qat_int8(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    stride: int = 1,
+    padding: int | tuple[int, int] = 0,
+    lhs_dilation: int = 1,
+) -> torch.Tensor:
+    """Int8 conv of a TRAINED layer, quantization-aware (JAX ``conv2d_qat_int8``).
+
+    ``x`` NCHW, ``w`` OIHW (a transpose conv's weight already in conv form: flipped,
+    in and out swapped), ``padding`` zero pads ``(lo, hi)`` on both axes after the
+    zero-insert ``lhs_dilation``. Forward: ``s_x = absmax(x) / 127``, ``xq = quant(x)``,
+    ``wq, sw = quant_weight(w)``, then ``acc * (s_x * sw) + b`` in f32, cast to
+    ``x.dtype``. Backward (STE through both quantizers): ``dw`` the real-dtype weight
+    gradient over ``xhat = xq * s_x`` against ``dy`` (:func:`_weight_grad`), ``db`` the
+    f32 sum of ``dy``, both in their primals' dtypes; ``dx`` the int8 dgrad
+    (:func:`_dgrad`), the forward's stride as its lhs dilation and its lhs dilation as
+    its window stride.
+    """
+    lo, hi = _pads(padding)
+    return _QatInt8Conv.apply(x, w, b, stride, lo, hi, lhs_dilation)

@@ -20,9 +20,13 @@ content features itself. The in-memory hooks (``content_images``,
 ``preview_every`` writes a Content/Style/Transformed figure every N epochs,
 ``profile_dir`` traces the second epoch with ``torch.profiler``, and
 ``fold_batch`` is accepted and runs the direct path (JAX's batch->H fold is a
-TPU layout rewrite of the same math). The options of later slices (``mesh``
-and the int8 training options) raise ``NotImplementedError`` naming their
-slice.
+TPU layout rewrite of the same math). The int8 training options run as JAX
+runs them: ``quantize_loss`` quantizes the VGG16 loss extractor once, before
+the targets are built (:func:`models.vgg.quantize_vgg16_loss`), so targets,
+content features and the step share it; ``qat`` and ``quantize_gram`` go to the
+step; a :func:`models.resnet_q.quantize_classifier` module as ``classifier``
+trains 'classifier' mode through the int8 classifier. ``mesh`` raises
+``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
@@ -48,36 +52,54 @@ from artist_style_transfer_tpu_torch.models.resnet import (
     load_classifier,
 )
 from artist_style_transfer_tpu_torch.models.transformer import init_transformer
-from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, load_vgg16
+from artist_style_transfer_tpu_torch.models.vgg import (
+    VGG16Features,
+    first_quantized_conv,
+    load_vgg16,
+    quantize_vgg16_loss,
+)
 from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
 from artist_style_transfer_tpu_torch.train.loop import (
+    COMPUTE_DTYPES,
+    check_int8_options,
     epoch_permutation,
     make_optimizer,
     make_step_fns,
     precompute_content_relu2_2,
 )
 from artist_style_transfer_tpu_torch.train.styles import MODES, build_style_targets
-from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
+from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 
-_INT8_LOSS_SLICE = "the port's int8 slice for the loss extractor (ROADMAP Queue 1 item 10b)"
-_QAT_SLICE = "the port's int8 slice for QAT (ROADMAP Queue 1 item 10c)"
 _FOLD_BATCH = ("auto", True, False, "vgg")
 
 
-def _refuse_unported(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> None:
+def _vgg_layers(quantize_loss: bool | str | int) -> str | int:
+    """``quantize_vgg16_loss``'s ``layers`` for ``train(quantize_loss=...)``: True is "deep"."""
+    return "deep" if quantize_loss is True else quantize_loss
+
+
+def _check_options(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> None:
+    """Refuse, before anything is written, what JAX's ``train()`` refuses, and ``mesh``."""
     if fold_batch not in _FOLD_BATCH:
         raise ValueError(f"fold_batch must be one of {_FOLD_BATCH}, got {fold_batch!r}")
-    checks = (
-        (mesh is not None, "mesh (data-parallel training) comes with the port's parallel slice "
-                           "(ROADMAP Queue 1 item 12)"),
-        (bool(qat), f"qat comes with {_QAT_SLICE}"),
-        (bool(quantize_loss), f"quantize_loss comes with {_INT8_LOSS_SLICE}"),
-        (quantize_gram is True, f"quantize_gram=True (the int8 Gram) comes with {_INT8_LOSS_SLICE}"),
-    )
-    for refused, why in checks:
-        if refused:
-            raise NotImplementedError(why)
+    check_int8_options(qat, quantize_gram)
+    first_q = first_quantized_conv(_vgg_layers(quantize_loss)) if quantize_loss else None
+    if mesh is not None:
+        raise NotImplementedError("mesh (data-parallel training) comes with the port's parallel "
+                                  "slice (ROADMAP Queue 1 item 12)")
+    if first_q is not None and first_q < 4 and fold_batch in (True, "vgg"):
+        raise NotImplementedError(  # JAX train/loop.py:301-309
+            "fold_batch training needs the shallow VGG blocks in bf16: "
+            "quantize_loss='all' quantizes conv1_2..conv2_2, which have "
+            "no folded int8 variant; use quantize_loss='deep'"
+        )
+    if qat and fold_batch is True:
+        raise NotImplementedError(  # JAX train/loop.py:310-315
+            "qat training uses the int8 transformer forward, which has no "
+            "batch->H folded variant; use fold_batch='vgg' (loss-branch "
+            "fold) or 'auto' (direct path)"
+        )
 
 
 def _resolve_frozen(net, cls, load, path: str, dev: torch.device) -> torch.nn.Module:
@@ -89,7 +111,7 @@ def _resolve_frozen(net, cls, load, path: str, dev: torch.device) -> torch.nn.Mo
         model = cls()
         model.load_state_dict(net)
         return model.to(dev)
-    if not same_device(next(net.parameters()).device, dev):
+    if not same_device(module_device(net), dev):
         net = copy.deepcopy(net).to(dev)  # the caller's module stays where it is
     return net
 
@@ -164,8 +186,8 @@ def train(
     if style_method not in MODES:
         print("enter valid style method!")  # train_cnn.py:274
         return 0
-    _refuse_unported(mesh=mesh, qat=qat, quantize_loss=quantize_loss,
-                     quantize_gram=quantize_gram, fold_batch=fold_batch)
+    _check_options(mesh=mesh, qat=qat, quantize_loss=quantize_loss,
+                   quantize_gram=quantize_gram, fold_batch=fold_batch)
     # Before anything is written: an artist outside the classifier's 19 raises.
     artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)
@@ -194,6 +216,12 @@ def train(
 
     model = init_transformer(torch.Generator().manual_seed(seed), dev)
     vgg = _resolve_frozen(vgg, VGG16Features, load_vgg16, vgg_path, dev)
+    if quantize_loss:
+        # Once, before the targets: targets, content relu2_2 and the step share the int8
+        # extractor, so the loss is exactly 0 at a perfect match (JAX api.py:158-167).
+        # 'classifier' mode's content loss stops at relu2_2, before the 'deep' convs.
+        vgg = quantize_vgg16_loss(vgg, _vgg_layers(quantize_loss),
+                                  dtype=COMPUTE_DTYPES.get(compute_dtype, torch.float32))
     classifier = (_resolve_frozen(classifier, ResNet50Classifier, load_classifier,
                                   classifier_path, dev)
                   if style_method == "classifier" else None)
@@ -249,7 +277,8 @@ def train(
                         batch_size=batch_size, num_content=n_content, use_kernel=use_kernel,
                         compute_dtype=compute_dtype,
                         classifier=classifier,
-                        reference_typo_stats=reference_typo_stats, remat=remat)
+                        reference_typo_stats=reference_typo_stats, remat=remat, qat=qat,
+                        quantize_gram=quantize_gram)
     content_r22 = None
     if content_data is not None:
         content_r22 = precompute_content_relu2_2(

@@ -26,6 +26,15 @@ What carries over from the JAX loop, and what changes:
   VGG weights (and of the classifier's, BN statistics included) to bf16
   inside the step (``torch.func.functional_call``), so the master weights,
   Adam's state and the gradients stay f32, and the losses are reduced in f32.
+  A quantized VGG or classifier is not cast: its int8 codes, f32 scales and
+  f32 biases are exact as they are, and its real leaves were made in the
+  compute dtype.
+- The int8 training options, as JAX: ``qat`` runs the TransformerNet through
+  its quantization-aware forward (:mod:`models.transformer_qat`); a quantized
+  VGG (:func:`models.vgg.quantize_vgg16_loss`) or classifier
+  (:func:`models.resnet_q.quantize_classifier`) runs its convs, and their STE
+  data gradients, in int8; ``quantize_gram`` (``"auto"``: with a quantized VGG)
+  sends the deep taps' Grams through the int8 Gram.
 
 In the Gram modes every Gram of the step goes through
 :func:`ops.losses.style_loss_gram`, which runs the Hopper Gram kernel on a
@@ -47,8 +56,10 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
+from artist_style_transfer_tpu_torch.models.resnet_q import classifier_is_quantized
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
-from artist_style_transfer_tpu_torch.models.vgg import VGG16Features
+from artist_style_transfer_tpu_torch.models.transformer_qat import QAT_LAYERS, QATForward
+from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, vgg_is_quantized
 from artist_style_transfer_tpu_torch.ops.image import (
     bgr_to_rgb,
     torchvision_normalize,
@@ -62,6 +73,14 @@ from artist_style_transfer_tpu_torch.ops.losses import (
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_int8_options(qat: bool | str, quantize_gram: bool | str) -> None:
+    """Raise ``ValueError`` for a ``qat`` or ``quantize_gram`` value the step does not take."""
+    if qat not in (False, True) + QAT_LAYERS:
+        raise ValueError(f"qat must be False, True or one of {QAT_LAYERS}, got {qat!r}")
+    if quantize_gram not in ("auto", True, False):
+        raise ValueError(f"quantize_gram must be 'auto', True or False, got {quantize_gram!r}")
 
 
 def make_optimizer(
@@ -119,6 +138,8 @@ def make_step_fns(
     classifier: ResNet50Classifier | None = None,
     reference_typo_stats: bool = False,
     remat: bool = False,
+    qat: bool | str = False,
+    quantize_gram: bool | str = "auto",
 ) -> StepFns:
     """Build the step functions of a training run.
 
@@ -126,6 +147,9 @@ def make_step_fns(
     training device; the step updates ``model``'s parameters in place through
     ``optimizer`` and ``scheduler``. ``reference_typo_stats`` normalizes the
     classifier's input with the reference training path's 0.546 G mean.
+    ``vgg`` and ``classifier`` may be quantized; ``qat`` (True or ``"trunk"``,
+    ``"all"``) picks the int8 convs of the TransformerNet's QAT forward;
+    ``quantize_gram`` (``"auto"``, True, False) the int8 Gram of the deep taps.
     """
     if mode == "classifier" and (classifier is None or targets.labels is None):
         raise ValueError("'classifier' training needs a classifier and the targets' labels")
@@ -135,12 +159,19 @@ def make_step_fns(
     if steps_full == 0:
         raise ValueError(f"content_data_size={num_content} < batch_size={batch_size}")
     steps_per_epoch = steps_full + (1 if num_content % batch_size else 0)
+    check_int8_options(qat, quantize_gram)
+    if quantize_gram == "auto":
+        quantize_gram = vgg_is_quantized(vgg)
     cdtype = COMPUTE_DTYPES[compute_dtype]
     # The frozen VGG is cast once, like JAX's vgg_compute; its weights get no gradient.
-    vgg_compute = vgg if cdtype == torch.float32 else copy.deepcopy(vgg).to(cdtype)
+    # A quantized one is left as it is (JAX train/loop.py:270-297).
+    vgg_compute = (vgg if cdtype == torch.float32 or vgg_is_quantized(vgg)
+                   else copy.deepcopy(vgg).to(cdtype))
     # The frozen classifier likewise, BN statistics included, as JAX casts its pytree.
     clf_compute = (classifier if classifier is None or cdtype == torch.float32
+                   or classifier_is_quantized(classifier)
                    else copy.deepcopy(classifier).to(cdtype))
+    forward = QATForward(model, "trunk" if qat is True else qat) if qat else model
     num_cycle = targets.num_cycle if mode == "cycle" else 0
 
     def remat_or_call(fn, *args, **kwargs):
@@ -152,7 +183,7 @@ def make_step_fns(
         if cdtype != torch.float32:
             params = {k: v.to(cdtype) for k, v in params.items()}
             batch = batch.to(cdtype)
-        gen = remat_or_call(functional_call, model, params, (batch,))
+        gen = remat_or_call(functional_call, forward, params, (batch,))
         if mode == "classifier":
             # relu2_2 alone for the content loss (train_cnn.py:64-68); BGR [0,255] ->
             # RGB [0,1] -> torchvision stats for the classifier (train_cnn.py:312).
@@ -164,7 +195,8 @@ def make_step_fns(
             feats = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen))
             gen_r22 = feats["relu2_2"]
             s_loss = style_weight * style_loss_gram(
-                feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel
+                feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel,
+                quantize=bool(quantize_gram),
             )
         c_loss = content_weight * content_loss(gen_r22, content_r22)
         return c_loss + s_loss, (c_loss, s_loss)
@@ -189,9 +221,9 @@ def make_step_fns(
         return torch.stack(losses)
 
     def stream_step_fn(batch, step):
-        # The content relu2_2 as precompute_content_relu2_2 gives it: the f32 VGG
-        # without gradients, then the compute dtype, so the streamed trajectory is
-        # the resident one; the generated image still goes through vgg_compute.
+        # The content relu2_2 as precompute_content_relu2_2 gives it: the f32 VGG (or
+        # the quantized one, the same extractor as the step's) without gradients,
+        # then the compute dtype, so the streamed trajectory is the resident one.
         with torch.no_grad():
             r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
         return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step)

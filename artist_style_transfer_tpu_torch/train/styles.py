@@ -30,6 +30,7 @@ from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
 from artist_style_transfer_tpu_torch.models.vgg import VGG_LAYER_NAMES, VGG16Features
 from artist_style_transfer_tpu_torch.ops.gram import gram_matrix
 from artist_style_transfer_tpu_torch.ops.image import vgg_caffe_preprocess
+from artist_style_transfer_tpu_torch.utils.device import module_device
 
 MODES = ("random", "average", "smartaverage", "cycle", "classifier")
 
@@ -66,7 +67,7 @@ def select_step_grams(
 
 
 def _features(vgg: VGG16Features, images_bgr_255: np.ndarray) -> dict[str, torch.Tensor]:
-    dev = next(vgg.parameters()).device
+    dev = module_device(vgg)
     x = torch.as_tensor(np.asarray(images_bgr_255, np.float32), device=dev)
     return vgg(vgg_caffe_preprocess(x))
 
@@ -106,7 +107,7 @@ def build_style_targets(
         if artist_index is None:
             artist_index = ARTISTS_19.index(artist)
         labels = torch.full((batch_size,), artist_index, dtype=torch.int64,
-                            device=next(vgg.parameters()).device)
+                            device=module_device(vgg))
         return StyleTargets(mode=mode, labels=labels)
 
     if mode == "average":

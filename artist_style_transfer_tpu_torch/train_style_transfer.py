@@ -6,8 +6,11 @@ plus ``--device`` (default: CUDA; ``--device cpu`` to run on the CPU).
 ``--precision`` sets ``ops.precision``: unset, ``highest`` (TF32 off) with
 float32 and ``default`` with bfloat16.
 
-Flags of later slices parse and reach ``train()``, which refuses them:
-``--data_parallel``, ``--quantize_loss``, ``--qat``, ``--quantize_gram on``.
+The int8 training flags run as in JAX: ``--quantize_loss [deep|all]`` (the int8
+VGG16 loss extractor), ``--qat [trunk|all]`` (the QAT TransformerNet),
+``--quantize_gram auto|on|off`` (the int8 Gram of the deep taps; ``auto``: with
+``--quantize_loss``). ``--data_parallel`` parses and reaches ``train()``, which
+refuses it until the parallel slice.
 ``--fold_batch on|vgg`` runs the direct path (the same math), ``--preview_every``
 writes a figure every N epochs and ``--profile_dir`` a trace of the second
 epoch. Two calls of
@@ -52,11 +55,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="matmul/conv precision policy (ops/precision.py); unset = highest "
                         "with float32, default (TF32) with bfloat16")
     p.add_argument("--quantize_loss", nargs="?", const="deep", default=None,
-                   choices=["deep", "all"], help="int8 VGG loss extractor (the int8 slice)")
+                   choices=["deep", "all"], help="int8 VGG16 loss extractor from conv3_1 "
+                   "(deep) or conv1_2 (all)")
     p.add_argument("--qat", nargs="?", const="trunk", default=None, choices=["trunk", "all"],
-                   help="int8 QAT transformer (the int8 slice)")
+                   help="int8 QAT TransformerNet: its 128-channel convs (trunk) or all "
+                        "16 interior convs")
     p.add_argument("--quantize_gram", default="auto", choices=["auto", "on", "off"],
-                   help="int8 Grams for the deep taps; 'on' comes with the int8 slice")
+                   help="int8 Grams for the deep taps (relu3_3, relu4_3); auto = with "
+                        "--quantize_loss")
     p.add_argument("--log_every_batches", type=int, default=12,
                    help="per-batch loss records in metrics.jsonl (0 = off); reference "
                         "BATCH_INFO_EVERY")

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 
@@ -27,3 +29,9 @@ def same_device(a: torch.device, b: torch.device) -> bool:
         return True
     cur = torch.cuda.current_device()
     return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def module_device(net: torch.nn.Module) -> torch.device:
+    """Where a net lives: its first parameter's device, or its first buffer's (the
+    quantized nets hold buffers only)."""
+    return next(itertools.chain(net.parameters(), net.buffers())).device

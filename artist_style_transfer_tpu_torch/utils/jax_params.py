@@ -12,12 +12,12 @@ weights are *spatially flipped* HWIO (the importer flips once so the
 transpose conv runs as a dilated conv); they become torch's unflipped
 (I, O, kH, kW). JAX dense weights are (I, O) and become (O, I).
 
-The quantized pytrees of JAX ``quantize_transformer`` and
-``quantize_classifier`` (int8 codes, scales, folded biases) become the port's
+The quantized pytrees of JAX ``quantize_transformer``, ``quantize_classifier``
+and ``quantize_vgg16_loss`` (int8 codes, scales, folded biases) become the port's
 quantized modules with the same codes (:func:`quantized_transformer_from_jax`,
-:func:`quantized_classifier_from_jax`). There every conv weight, the transpose
-convs' included, is OIHW in the conv form: JAX runs its flipped HWIO over the
-dilated input as a plain conv, and so does the port.
+:func:`quantized_classifier_from_jax`, :func:`quantized_vgg16_from_jax`). There
+every conv weight, the transpose convs' included, is OIHW in the conv form: JAX
+runs its flipped HWIO over the dilated input as a plain conv, and so does the port.
 """
 
 from __future__ import annotations
@@ -205,3 +205,18 @@ def quantized_classifier_from_jax(qparams: dict):
               **{fc: {"w": _q(np.asarray(head[fc]["w"]).T), "b": _q(head[fc]["b"])}
                  for fc in ("fc1", "fc2")}},
     )
+
+
+def quantized_vgg16_from_jax(qparams: list[dict]):
+    """JAX ``quantize_vgg16_loss`` list -> :class:`models.vgg.QuantizedVGG16Features` with
+    the same int8 codes, scales and f32 biases, and the real convs in their dtype (f32
+    or bf16) (on the CPU)."""
+    from artist_style_transfer_tpu_torch.models.vgg import QuantizedVGG16Features
+
+    real = [p for p in qparams if "wq" not in p]
+    dtype = torch.bfloat16 if np.asarray(real[0]["w"]).dtype.name == "bfloat16" else torch.float32
+    convs = [{"wq": _q_conv_w(p["wq"]), "sw": _q(p["sw"]), "b": _q(p["b"])} if "wq" in p
+             else {"w": _conv_w(np.asarray(p["w"], np.float32)).to(dtype),
+                   "b": _q(p["b"]).to(dtype)}
+             for p in qparams]
+    return QuantizedVGG16Features(convs, len(real))

@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
                                       # batch, 4 'cycle' training steps, an eval batch,
                                       # 4 'classifier' training steps, 8 streamed steps,
-                                      # an int8 stylize batch and an int8 eval batch
+                                      # an int8 stylize batch, an int8 eval batch and
+                                      # 4 steps of each int8 training run
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -100,7 +101,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     classifier; skipped where the CPU's top-2 margin is under 2e-2 of max|logit|);
     then ``inference.py --no-display --quantize`` on 4 JPEGs, whose ``Acc=`` must
     equal a direct call's on the same files in the CLI's order;
-12. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+12. int8_train: 'cycle' ``train()`` at the train phase's shapes (224x224, B=4, 16
+    seeded content images, 8 paintings, seeded VGG16) in bf16: without int8 (3
+    epochs, the baseline), with ``quantize_loss=True`` (3 epochs), with ``qat="trunk"``
+    as well (3 epochs) and ``qat="all"`` (1 epoch), then 'classifier' through
+    ``quantize_classifier`` of the seeded classifier (4 steps): finite per-step losses,
+    falling over 3 epochs, and each run's K2, K1 and ``_int_mm`` launches counted from
+    0: a step launches K2 for each int8 conv's forward and for its STE data gradient,
+    12 (quantize_loss), 38 (+QAT trunk: 13 convs), 44 (QAT all: 16) and 104 (the
+    ResNet-50's 52), the targets' forward 6 more; K1 2 a step (relu1_2, relu2_2) and 4
+    for the targets; the int8 Gram 16 ``_int_mm`` calls a step (relu3_3 and relu4_3,
+    forward and backward, one an image); gradients on every quantized layer's weight
+    and gamma and on the output conv (QAT), on the TransformerNet (classifier), none
+    on the frozen VGG or an int8 net's buffer. Then K2 against its plain version on
+    one recorded step of each int8 net, forward and dgrad shapes apart, as phase
+    int8 holds it (cuDNN's bf16 conv of the same geometry the reference, a dgrad's
+    lhs-dilated one as a transpose conv); the int8 Gram's ``_int_mm`` products
+    against the f64 ones at relu3_3 and relu4_3 (int32 error 0) and their times; warm
+    ms/step of each int8 net; ``train_style_transfer.main`` with ``--quantize_loss
+    --qat`` for one epoch over 16 seeded JPEGs (its K2 launches, the ``.pth``
+    reloading);
+13. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read JPEGs (``eval``'s CLI step, ``data``). Without CUDA,
@@ -179,6 +200,16 @@ INT8_CLI_IMAGES = 4
 # Launches of K2: 16 int8 convs a TransformerNet forward, 52 a ResNet-50 forward.
 QCONV_TRANSFORMER = 16
 QCONV_RESNET = 52
+# The int8 training phase: the train phase's 'cycle' shapes in bf16. Int8 convs of a
+# step, each launching K2 twice (forward and STE data gradient): the VGG16's conv3_1..
+# conv4_3 under quantize_loss "deep", the QAT TransformerNet's 128-channel convs under
+# "trunk" (JAX's gate cout < 128: encoder convs 3-4, 10 residual, decoder conv 1) or its
+# 16 interior ones under "all", the ResNet-50's 52.
+INT8_TRAIN_EPOCHS = 3
+QCONV_VGG_DEEP = 6
+QCONV_QAT = {"trunk": 13, "all": 16}
+INT8_GRAM_TAPS = (("relu3_3", 4, 256), ("relu4_3", 8, 512))  # the taps the int8 Gram takes
+INT8_CLI_CONTENT = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -539,9 +570,10 @@ def train_data(size: int = TRAIN_SIZE) -> tuple[np.ndarray, np.ndarray]:
 
 
 def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray | None, use_kernel,
-                   device: str, compute_dtype: str = "float32", classifier=None):
+                   device: str, compute_dtype: str = "float32", classifier=None, qat=False):
     """Step functions from ``init_transformer`` seed 0, and the corpus on ``device``:
-    'cycle', or 'classifier' when a classifier is given."""
+    'cycle', or 'classifier' when a classifier is given; ``vgg`` and ``classifier`` may
+    be quantized, and ``qat`` runs the QAT TransformerNet."""
     from artist_style_transfer_tpu_torch.models.transformer import init_transformer
     from artist_style_transfer_tpu_torch.train.loop import (
         make_optimizer,
@@ -559,7 +591,7 @@ def train_step_fns(vgg, content: np.ndarray, paintings: np.ndarray | None, use_k
     fns = make_step_fns(mode, model, vgg, targets, opt, sched, content_weight=17.0,
                         style_weight=25.0, batch_size=TRAIN_BATCH, num_content=len(content),
                         use_kernel=use_kernel, compute_dtype=compute_dtype,
-                        classifier=classifier)
+                        classifier=classifier, qat=qat)
     data = torch.as_tensor(content, device=device)
     r22 = precompute_content_relu2_2(
         vgg, data, dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
@@ -940,9 +972,10 @@ def phase_train_classifier(peaks: dict, size: int = TRAIN_SIZE, device: str = "c
     return launches
 
 
-def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501)) -> dict:
+def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501),
+                   n_content: int = DATA_CONTENT, artists=DATA_ARTISTS) -> dict:
     """The seeded workspace of the data phase under ``root``, in the reference's layout:
-    ``images/content/`` (DATA_CONTENT JPEGs and one truncated file),
+    ``images/content/`` (``n_content`` JPEGs and one truncated file),
     ``images/archive/artists.csv`` and ``resized/resized/<name>_<i>.jpg``, an empty
     ``dicts/``, ``models/vgg16-00b39a1b.pth``. Images are smooth colour fields with
     noise, so they compress and decode like photographs rather than like white noise."""
@@ -965,7 +998,7 @@ def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501)) 
         os.makedirs(d)
     paintings = os.path.join(ws["archive"], "resized", "resized")
     os.makedirs(paintings)
-    for i in range(DATA_CONTENT):
+    for i in range(n_content):
         cv2.imwrite(os.path.join(ws["content"], f"c{i:03d}.jpg"), image(*size_range))
     with open(os.path.join(ws["content"], "c000.jpg"), "rb") as fh:
         head = fh.read(200)  # inside the JPEG headers: no decoder gets an image out of it
@@ -974,14 +1007,14 @@ def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501)) 
         fh.write(head)
     with open(os.path.join(ws["archive"], "artists.csv"), "w") as fh:
         fh.write("id,name,paintings\n")
-        for k, (name, n) in enumerate(DATA_ARTISTS):
+        for k, (name, n) in enumerate(artists):
             fh.write(f"{k},{name},{n}\n")
             for i in range(1, n + 1):
                 cv2.imwrite(os.path.join(paintings, f"{name.replace(' ', '_')}_{i}.jpg"),
                             image(*painting_range))
     ws["vgg"] = os.path.join(ws["models"], "vgg16-00b39a1b.pth")
     torch.save(init_vgg16(torch.Generator().manual_seed(0)).state_dict(), ws["vgg"])
-    ws["artist"] = DATA_ARTISTS[0][0].replace(" ", "_")
+    ws["artist"] = artists[0][0].replace(" ", "_")
     return ws
 
 
@@ -1559,6 +1592,246 @@ def phase_int8(peaks: dict, smi: str) -> dict:
         "k1_launches": {"stylize_int8": stylize_k1, "eval_int8": eval_k1}}
 
 
+def counted_train(mode: str, artist: str, tmp: str, **kw) -> dict:
+    """``train()`` with the K1, K2 and ``_int_mm`` counters zeroed just before it and read
+    just after; with its per-step losses and epoch records from ``metrics.jsonl``."""
+    from artist_style_transfer_tpu_torch.ops import gram as gram_ops
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel, qconv_kernel
+    from artist_style_transfer_tpu_torch.train import train
+
+    model_dir = tempfile.mkdtemp(dir=tmp)
+    sync()
+    gram_kernel.LAUNCHES = qconv_kernel.LAUNCHES = gram_ops.INT_MM_CALLS = 0
+    t0 = time.perf_counter()
+    model, losses = train(mode, artist, model_dir=model_dir, log_every_batches=1, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = {"k2": qconv_kernel.LAUNCHES, "k1": gram_kernel.LAUNCHES,
+              "int_mm": gram_ops.INT_MM_CALLS}
+    events = read_jsonl(os.path.join(model_dir, artist, mode, "metrics.jsonl"))
+    steps = np.array([[e["content_loss"], e["style_loss"], e["total_loss"]]
+                      for e in events if e["event"] == "batch"])
+    epochs = [e for e in events if e["event"] == "epoch"]
+    warm = epochs[1:] or epochs
+    warm_steps = len(steps) * len(warm) // len(epochs)
+    return {"model": model, "losses": losses, "steps": steps, "counts": counts,
+            "seconds": seconds, "epoch_secs": [e["secs"] for e in epochs],
+            "ms_per_step": sum(e["secs"] for e in warm) * 1e3 / warm_steps,
+            "images_per_sec": warm_steps * TRAIN_BATCH / sum(e["secs"] for e in warm)}
+
+
+def check_int8_run(name: str, run: dict, epochs: int, per_step: dict, setup: dict) -> dict:
+    """Finite per-step losses, falling over more than one epoch, and each counter at
+    ``setup`` (the style targets) plus ``per_step`` a step; returns the line's fields."""
+    steps = run["steps"]
+    spe = -(-TRAIN_CONTENT // TRAIN_BATCH)
+    require(steps.shape == (epochs * spe, 3), f"int8_train {name}: {steps.shape} step records")
+    require(bool(np.isfinite(steps).all()) and bool(np.isfinite(run["losses"]).all()),
+            f"int8_train {name}: a loss is not finite")
+    if epochs > 1:
+        losses = run["losses"]
+        require(losses[-1, 2] < losses[0, 2], f"int8_train {name}: epoch {epochs} total "
+                                              f"{losses[-1, 2]} not below epoch 1's {losses[0, 2]}")
+    want = {k: setup.get(k, 0) + per_step.get(k, 0) * len(steps) for k in run["counts"]}
+    require(run["counts"] == want, f"int8_train {name}: launches {run['counts']} != {want}")
+    return {"epochs": epochs, "steps": int(len(steps)), "epoch_losses": run["losses"].tolist(),
+            "launches": run["counts"], "launches_per_step": per_step, "seconds": run["seconds"],
+            "epoch_secs": run["epoch_secs"], "ms_per_step": run["ms_per_step"],
+            "images_per_sec": run["images_per_sec"]}
+
+
+def record_step(fns, data: torch.Tensor, r22: torch.Tensor) -> tuple[list, list]:
+    """The K2 calls of one training step, split into the forward's and the backward's
+    (every int8 conv of a step launches once in each, the forward's first)."""
+    calls = record_qconv_calls(lambda: fns.step_fn(data[:TRAIN_BATCH], r22[:TRAIN_BATCH], 0))
+    half = len(calls) // 2
+    require(len(calls) == 2 * half, f"int8_train: {len(calls)} K2 calls in a step")
+    return calls[:half], calls[half:]
+
+
+def check_int8_gram(peaks: dict) -> dict:
+    """The int8 Gram's ``torch._int_mm`` route against its plain version (the codes in
+    f64) at relu3_3 and relu4_3 of a 224x224 B=4 step, forward and backward products:
+    int32 error 0; times (warm events), the plain version's on the card, the bound."""
+    from artist_style_transfer_tpu_torch.ops import gram as gram_ops
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, down, c in INT8_GRAM_TAPS:
+        hw = (TRAIN_SIZE // down) ** 2
+        rows = gram_ops._int_mm_rows(hw)
+        fq = torch.zeros((TRAIN_BATCH, rows, c), dtype=torch.int8, device="cuda")
+        fq[:, :hw] = torch.randint(-127, 128, (TRAIN_BATCH, hw, c), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+        sym = torch.randint(-127, 128, (TRAIN_BATCH, c, c), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        fq_t = fq.transpose(1, 2).contiguous()
+        line = {"tap": name, "n": TRAIN_BATCH, "hw": hw, "rows": rows, "c": c}
+        for kind, a, b_t in (("forward", fq_t, fq_t), ("backward", fq, sym.transpose(1, 2))):
+            got = gram_ops.int8_products(a, b_t)
+            ref = torch.bmm(a.double(), b_t.double().transpose(1, 2))
+            err = int((got.double() - ref).abs().max().item())
+            require(err == 0, f"int8 Gram {name} {kind}: _int_mm off the f64 product by {err}")
+            m, k = a.shape[1], a.shape[2]
+            ops = 2.0 * TRAIN_BATCH * m * k * b_t.shape[1]
+            nbytes = a.numel() + (0 if kind == "forward" else b_t.numel()) + got.numel() * 4
+            t_ops, t_bytes = ops / peaks["int8"] * 1e3, nbytes / peaks["hbm"] * 1e3
+            line[kind] = {
+                "max_abs_err": err,
+                "ms": time_ms(lambda a=a, b_t=b_t: gram_ops.int8_products(a, b_t)),
+                "plain_ms": time_ms(lambda a=a, b_t=b_t: torch.bmm(
+                    a.double(), b_t.double().transpose(1, 2)), iters=5, warmup=1),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        out.append(line)
+    return {"taps": out, **{f"{k}_{kind}": sum(t[kind][k] for t in out)
+                            for k in ("ms", "plain_ms", "bound_ms")
+                            for kind in ("forward", "backward")}}
+
+
+def int8_cli(tmp: str, size: int) -> dict:
+    """``train_style_transfer.main`` with ``--quantize_loss --qat`` for one epoch over a
+    small seeded workspace: finite losses, its K2 launches, the ``.pth`` reloading."""
+    from artist_style_transfer_tpu_torch import train_style_transfer
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
+    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
+
+    n_paint = 8
+    ws = data_workspace(os.path.join(tmp, "ws"), n_content=INT8_CLI_CONTENT,
+                        artists=(("Seeded Artist", n_paint),))
+    model_dir = os.path.join(tmp, "cli_models")
+    sync()
+    qconv_kernel.LAUNCHES = 0
+    model, losses = train_style_transfer.main([
+        "--style_method", "cycle", "--artist", ws["artist"], "--num_epochs", "1",
+        "--batch_size", str(TRAIN_BATCH), "--content_data_size", str(INT8_CLI_CONTENT),
+        "--train_size", str(size), "--log_every_batches", "1", "--quantize_loss", "--qat",
+        "--content_dir", ws["content"], "--archive_dir", ws["archive"],
+        "--cache_dir", ws["cache"], "--model_dir", model_dir, "--vgg_path", ws["vgg"],
+        "--quiet"])
+    sync()
+    launches = qconv_kernel.LAUNCHES
+    run_dir = os.path.join(model_dir, ws["artist"], "cycle")
+    _, batches, _ = metrics_of(run_dir)
+    per_step = 2 * (QCONV_QAT["trunk"] + QCONV_VGG_DEEP)
+    want = per_step * len(batches) + QCONV_VGG_DEEP * -(-n_paint // 8)
+    require(bool(np.isfinite(losses).all()), f"int8 CLI: losses {losses.tolist()}")
+    require(launches == want, f"int8 CLI: {launches} K2 launches != {want}")
+    probe = np.random.default_rng(5).uniform(0, 255, (1, size, size, 3)).astype(np.float32)
+    ref = stylize(model, probe, clip=False, device="cuda").float().cpu().numpy()
+    out = stylize(load_transfer_params(os.path.join(run_dir, "transfer_17-25_1.pth"),
+                                       device="cuda"), probe, clip=False,
+                  device="cuda").float().cpu().numpy()
+    db = psnr(out, ref)
+    require(db > 45.0, f"int8 CLI: the .pth export {db} dB from the model")
+    return {"steps": len(batches), "epoch_losses": losses.tolist(), "k2_launches": launches,
+            "pth_reload_db": db}
+
+
+def phase_int8_train(peaks: dict, smi: str) -> dict:
+    """Int8 training on the card: ``train()`` with ``quantize_loss``, with ``qat`` and
+    through a quantized classifier, K2's forward and data-gradient shapes against the
+    plain version, the int8 Gram's ``_int_mm`` route, and the CLI's int8 flags."""
+    from artist_style_transfer_tpu_torch.models.resnet_q import quantize_classifier
+    from artist_style_transfer_tpu_torch.models.transformer import ENCODER_SPEC
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16, quantize_vgg16_loss
+
+    vgg = init_vgg16(torch.Generator().manual_seed(0), device="cuda")
+    content, paintings = train_data()
+    chunks = -(-TRAIN_PAINTINGS // 8)
+    kw = dict(batch_size=TRAIN_BATCH, seed=0, num_steps=2, save_every=0, content_images=content,
+              paintings=paintings, vgg=vgg, device="cuda", wordy=False,
+              compute_dtype="bfloat16")
+    deep = {"k2": 2 * QCONV_VGG_DEEP, "k1": 2, "int_mm": 2 * len(INT8_GRAM_TAPS) * TRAIN_BATCH}
+    setup = {"k2": QCONV_VGG_DEEP * chunks, "k1": 4 * chunks}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_train_")
+    lines, ms = {}, {}
+    try:
+        # The main paths, each with its counters zeroed just before it.
+        base = counted_train("cycle", "Seeded", tmp, num_epochs=INT8_TRAIN_EPOCHS, **kw)
+        lines["bf16"] = check_int8_run("bf16", base, INT8_TRAIN_EPOCHS, {"k1": 4}, setup={
+            "k1": 4 * chunks})
+        ql = counted_train("cycle", "Seeded", tmp, num_epochs=INT8_TRAIN_EPOCHS,
+                           quantize_loss=True, **kw)
+        lines["quantize_loss"] = check_int8_run("quantize_loss", ql, INT8_TRAIN_EPOCHS, deep,
+                                                setup)
+        frozen = [n for n, p in vgg.named_parameters() if p.grad is not None]
+        require(not frozen, f"int8_train: VGG parameters with a .grad: {frozen[:4]}")
+        qat = counted_train("cycle", "Seeded", tmp, num_epochs=INT8_TRAIN_EPOCHS,
+                            quantize_loss=True, qat="trunk", **kw)
+        lines["qat_trunk"] = check_int8_run(
+            "qat_trunk", qat, INT8_TRAIN_EPOCHS,
+            {**deep, "k2": deep["k2"] + 2 * QCONV_QAT["trunk"]}, setup)
+        # A gradient on every quantized layer's weight and gamma, and on the output conv.
+        model = qat["model"]
+        quantized = [model.ConvBlock[2 * i] for i, (_, _, _, co) in enumerate(ENCODER_SPEC)
+                     if i and co == 128] + [m for b in model.ResidualBlock
+                                            for m in (b.conv1, b.conv2)]
+        leaves = [(m.conv_layer.weight, m.norm_layer.weight) for m in quantized] + [
+            (model.DeconvBlock[0].conv_transpose.weight, model.DeconvBlock[0].norm_layer.weight),
+            (model.DeconvBlock[-1].conv_layer.weight,)]
+        require(all(p.grad is not None and bool(p.grad.abs().max() > 0)
+                    for group in leaves for p in group),
+                "int8_train qat: a quantized layer's weight or gamma, or the output conv, "
+                "has no gradient")
+        qat_all = counted_train("cycle", "Seeded", tmp, num_epochs=1, quantize_loss=True,
+                                qat="all", **kw)
+        lines["qat_all"] = check_int8_run(
+            "qat_all", qat_all, 1, {**deep, "k2": deep["k2"] + 2 * QCONV_QAT["all"]}, setup)
+        qclf = quantize_classifier(seeded_classifier("cuda"))
+        clf_kw = dict(kw, paintings=None, classifier=qclf)
+        cl = counted_train("classifier", CLF_ARTIST, tmp, num_epochs=1, **clf_kw)
+        lines["classifier"] = check_int8_run("classifier", cl, 1, {"k2": 2 * QCONV_RESNET}, {})
+        require(all(p.grad is not None and bool(p.grad.abs().max() > 0)
+                    for n, p in cl["model"].named_parameters() if n.endswith("conv_layer.weight")),
+                "int8_train classifier: no gradient reached a TransformerNet conv")
+        del base, ql, qat, qat_all, cl, model, leaves
+
+        # Warm ms/step of each configuration (phase train's measure), and K2 against plain
+        # on one recorded step of each int8 net: every forward and data-gradient shape.
+        # A step's forward launches come first, then the backward's in reverse order.
+        clf = seeded_classifier("cuda")
+        qvgg = quantize_vgg16_loss(vgg, "deep", dtype=torch.bfloat16)
+        nq = QCONV_QAT["all"]
+        recorded = {"quantize_loss": ("vgg", slice(None), slice(None)),
+                    "qat_all": ("qat_all", slice(0, nq), slice(QCONV_VGG_DEEP, None)),
+                    "classifier_int8": ("resnet", slice(None), slice(None))}
+        shapes, calls = {}, {}
+        for name, net, step_kw in (("bf16", vgg, {}), ("quantize_loss", qvgg, {}),
+                                   ("qat_trunk", qvgg, {"qat": "trunk"}),
+                                   ("qat_all", qvgg, {"qat": "all"}),
+                                   ("classifier_bf16", vgg, {"classifier": clf}),
+                                   ("classifier_int8", vgg, {"classifier": qclf})):
+            fns, data, r22 = train_step_fns(
+                net, content, None if "classifier" in step_kw else paintings, "auto", "cuda",
+                compute_dtype="bfloat16", **step_kw)
+            if name in recorded:
+                key, fwd, bwd = recorded[name]
+                forward, backward = record_step(fns, data, r22)
+                calls[f"{key}_fwd"], calls[f"{key}_dgrad"] = forward[fwd], backward[bwd]
+            ms[name] = warm_ms_per_step(fns, data, r22)
+        grads = [n for net in (qvgg, qclf) for n, b in net.named_buffers() if b.grad is not None]
+        require(not grads, f"int8_train: int8 net buffers with a .grad: {grads[:4]}")
+        require([len(calls[k]) for k in ("vgg_fwd", "qat_all_fwd", "resnet_fwd")]
+                == [QCONV_VGG_DEEP, nq, QCONV_RESNET],
+                f"int8_train: recorded {[(k, len(v)) for k, v in calls.items()]}")
+        for key, group in calls.items():
+            shapes[f"train_{key}"] = check_qconv_shapes(group, f"train_{key}", peaks)
+        del calls
+        gram = check_int8_gram(peaks)
+        emit("int8_gram", **gram, card=smi)
+        cli = int8_cli(tmp, TRAIN_SIZE)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("int8_train", size=TRAIN_SIZE, batch=TRAIN_BATCH, content=TRAIN_CONTENT,
+         paintings=TRAIN_PAINTINGS, compute_dtype="bfloat16", runs=lines,
+         warm_ms_per_step=ms, cli=cli, card=smi)
+    launches = {f"int8_train_{k}": v["launches"]["k2"] for k, v in lines.items() if k != "bf16"}
+    launches["int8_train_cli"] = cli["k2_launches"]
+    return {"shapes": shapes, "launches": launches, "gram": gram,
+            "k1_launches": {f"int8_train_{k}": v["launches"]["k1"] for k, v in lines.items()}}
+
+
 def eval_cli_int8(tmp: str, pth: str, model, clf, artist: int) -> dict:
     """``inference.py --no-display --quantize`` on INT8_CLI_IMAGES seeded JPEGs on the
     default device: its ``Acc=`` against ``evaluate_with_classifier(quantize=True)`` on
@@ -1675,8 +1948,17 @@ class TimedStream:
             yield batch
 
 
+# Kernel-name fragments of the int8 training windows' groups: K2, K1, cuBLASLt's int8
+# GEMM (the int8 Gram), the quantize passes (round, clip; the scale and the cast to int8
+# are kernels shared with other ops and are not counted), the absmax (abs, max reduce).
+INT8_GROUPS = {"k2": ("qconv_kernel",), "k1": ("gram_tile_kernel",),
+               "int_mm": ("gemm_s8",),
+               "quantize": ("round_kernel", "clamp"),
+               "absmax": ("AbsFunctor", "MaxNanFunctor")}
+
+
 def profile_window(path: str, run, units: int, unit: str, timeline: bool = False,
-                   decode_wait: TimedStream | None = None) -> None:
+                   decode_wait: TimedStream | None = None, groups: dict | None = None) -> None:
     """Device time by kernel over one warm call of ``run`` (``--profile`` only).
 
     Only device-side kernel events count: the host-side ``aten::`` rows carry
@@ -1702,6 +1984,10 @@ def profile_window(path: str, run, units: int, unit: str, timeline: bool = False
     extra = {"copies": copy_timeline(prof, wall_ms)} if timeline else {}
     if decode_wait is not None:
         extra["decode_wait_ms"] = [w * 1e3 for w in decode_wait.waits]
+    if groups:  # each group's share of the device time, by kernel-name fragment
+        hits = {g: [r for r in rows if any(f in r[1] for f in frags)] for g, frags in groups.items()}
+        extra["shares"] = {g: sum(r[0] for r in rs) / total_us for g, rs in hits.items()}
+        extra["share_kernels"] = {g: sorted({r[1][:100] for r in rs}) for g, rs in hits.items()}
     # Host calls that wait on the device, pin memory or launch kernels.
     host = {ev.key: {"calls": ev.count, "ms": ev.cpu_time_total / 1e3}
             for ev in prof.key_averages() if ev.device_type == DeviceType.CPU
@@ -1713,7 +1999,7 @@ def profile_window(path: str, run, units: int, unit: str, timeline: bool = False
          calls_by_kind={kind: sum(r[2] for r in rows if kind in r[1])
                         for kind in ("wgrad", "dgrad", "nhwcToNchw", "nchwToNhwc")},
          top=[{"kernel": k[:120], "ms": us / 1e3, "calls": cnt, "share": us / total_us}
-              for us, k, cnt in rows[:20]])
+              for us, k, cnt in rows[:60 if groups else 20]])
 
 
 def phase_profile() -> None:
@@ -1753,6 +2039,27 @@ def phase_profile() -> None:
                    fns.steps_per_epoch, "step")
     profile_stream(vgg)
     profile_int8(model, clf, batch, images)
+    profile_int8_train(vgg, clf)
+
+
+def profile_int8_train(vgg, clf) -> None:
+    """One bf16 epoch of 4 steps at 224², B=4 of each int8 training run: the int8 loss
+    extractor ("deep", with the int8 Gram), QAT "trunk" with it, and 'classifier' through
+    the quantized classifier; and the bf16 'cycle' epoch without them."""
+    from artist_style_transfer_tpu_torch.models.resnet_q import quantize_classifier
+    from artist_style_transfer_tpu_torch.models.vgg import quantize_vgg16_loss
+
+    content, paintings = train_data()
+    qvgg = quantize_vgg16_loss(vgg, "deep", dtype=torch.bfloat16)
+    perm = torch.arange(len(content))
+    for path, net, kw in (("train_bf16", vgg, {}), ("int8_train_quantize_loss", qvgg, {}),
+                          ("int8_train_qat_trunk", qvgg, {"qat": "trunk"}),
+                          ("int8_train_classifier", vgg,
+                           {"classifier": quantize_classifier(clf)})):
+        fns, data, r22 = train_step_fns(net, content, None if "classifier" in kw else paintings,
+                                        "auto", "cuda", compute_dtype="bfloat16", **kw)
+        profile_window(path, lambda: fns.epoch_fn(data, r22, perm, 0), fns.steps_per_epoch,
+                       "step", groups=INT8_GROUPS)
 
 
 def profile_int8(model, clf, batch: list[np.ndarray], images: list[np.ndarray]) -> None:
@@ -1815,6 +2122,8 @@ def main(argv=None) -> int:
     phase_display()
     int8 = phase_int8(peaks, smi)
     launches.update(int8["k1_launches"])
+    int8_train = phase_int8_train(peaks, smi)
+    launches.update(int8_train["k1_launches"])
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -1822,8 +2131,12 @@ def main(argv=None) -> int:
     k2 = {k: int8["shapes"]["eval_transformer_1024"][k] + int8["shapes"]["eval_resnet_256"][k]
           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
                     "cudnn_bf16_ms")}
-    k2_err = {k: max(v[k] for v in int8["shapes"].values())
+    paths = {**int8["shapes"], **int8_train["shapes"]}
+    k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
+    # K2's data gradients: the sums over one step's dgrad launches of each int8 training net.
+    dgrad = {k: sum(v[k] for p, v in paths.items() if p.endswith("_dgrad"))
+             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "launches")}
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
@@ -1841,7 +2154,9 @@ def main(argv=None) -> int:
         "library_ms": gram["library_ms"],
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
                         "count, its counter zeroed just before it; eval, train_classifier, "
-                        "stylize_int8 and eval_int8 compute no Gram and must count 0; "
+                        "stylize_int8, eval_int8 and int8_train_classifier compute no Gram "
+                        "and must count 0; the int8_train runs 2 a step (relu1_2, relu2_2) "
+                        "and 4 for the targets, their bf16 baseline 4 a step; "
                         "train_cli is the training CLI from directories, train_stream "
                         "train() over content_file_stream",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
@@ -1857,9 +2172,9 @@ def main(argv=None) -> int:
         "source": QCONV_SOURCE,
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
-        "launches_by_path": int8["launches"],
+        "launches_by_path": {**int8["launches"], **int8_train["launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
-        "bf16_mismatches": sum(v["bf16_mismatches"] for v in int8["shapes"].values()),
+        "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
         "ms": k2["ms"],
         "device_ms": k2["device_ms"],
@@ -1871,7 +2186,11 @@ def main(argv=None) -> int:
         "launches_are": "launches: the int8 eval main path (16 images, 4 batches of 68: 16 "
                         "TransformerNet and 52 ResNet-50 convs), counter zeroed just before; "
                         "stylize_int8 one 512x512 B=4 forward; eval_cli_int8 the --quantize "
-                        "CLI's one batch",
+                        "CLI's one batch; int8_train_* the int8 training runs of phase "
+                        "int8_train (224x224 B=4 bf16, each int8 conv forward and dgrad a "
+                        "step, the targets' forward once): quantize_loss 3 epochs x 4 steps "
+                        "x 12 + 6, qat_trunk x 38 + 6, qat_all 1 epoch x 44 + 6, "
+                        "classifier 4 steps x 104, cli the --quantize_loss --qat CLI",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
                      "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
@@ -1879,8 +2198,11 @@ def main(argv=None) -> int:
                      "cold-L2 by the profiler; library_ms null: no PyTorch call computes an "
                      "int8 conv (torch._int_mm only its 1x1 shapes, in the qconv lines); "
                      "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference; "
-                     "paths holds each path's sums, and each qconv line its shape's plan",
-        "paths": int8["shapes"],
+                     "paths holds each path's sums (train_*: one step of the int8 training "
+                     "nets, forward and dgrad launches apart), dgrad the sums over the "
+                     "train_*_dgrad paths, and each qconv line its shape's plan",
+        "paths": paths,
+        "dgrad": dgrad,
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

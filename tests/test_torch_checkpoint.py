@@ -240,21 +240,31 @@ def test_checkpoint_roundtrip_restores_model_and_optimizer(tmp_path):
 
 UNPORTED = [
     (dict(mesh=object()), "parallel slice"),
-    (dict(qat=True), "int8 slice"),
-    (dict(quantize_loss=True), "int8 slice"),
-    (dict(quantize_gram=True), "int8 slice"),
+    (dict(qat=True, fold_batch=True), "batch->H folded"),
+    (dict(quantize_loss="all", fold_batch=True), "use quantize_loss='deep'"),
 ]
 
 
 @pytest.mark.parametrize("kw,slice_name", UNPORTED,
                          ids=["-".join(f"{k}={v!r}"[:24] for k, v in kw.items()) for kw, _ in UNPORTED])
 def test_train_refuses_what_later_slices_bring(hooks, tmp_path, kw, slice_name):
+    """``mesh`` waits for the parallel slice; the int8 options refuse what JAX refuses."""
     args = dict(hooks, style_method="cycle", artist="A", num_epochs=1, batch_size=2,
                 model_dir=str(tmp_path))
     args.update(kw)
     with pytest.raises(NotImplementedError, match=slice_name):
         train(**args)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.mark.parametrize("kw", [dict(qat=True), dict(quantize_loss=True), dict(quantize_gram=True)],
+                         ids=["qat", "quantize_loss", "quantize_gram"])
+def test_train_runs_the_int8_options_and_checkpoints(hooks, tmp_path, kw):
+    """Each int8 option trains one tiny epoch and writes its checkpoint and exports."""
+    _, losses = run(hooks, tmp_path, num_epochs=1, **kw)
+    assert losses.shape == (1, 3) and np.isfinite(losses).all()
+    names = os.listdir(tmp_path / "Artist" / "cycle")
+    assert {"transfer_17-25_1.ckpt", "transfer_17-25_1.pth"} <= set(names)
 
 
 @pytest.fixture(scope="module")

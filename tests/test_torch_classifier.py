@@ -40,6 +40,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
     classifier_state_dict_from_jax,
     transformer_state_dict_from_jax,
 )
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 
 def rel_err(got, ref) -> float:

@@ -17,6 +17,7 @@ from artist_style_transfer_tpu_torch.models import vgg as tvgg
 from artist_style_transfer_tpu_torch.ops import losses as tlosses
 from artist_style_transfer_tpu_torch.train.gatys import gatys_stylize
 from artist_style_transfer_tpu_torch.utils.jax_params import vgg16_state_dict_from_jax
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 SIZE = 32
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from artist_style_transfer_tpu_torch.utils.images import read_png
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "artist_style_transfer_tpu_torch"

@@ -209,10 +209,11 @@ def test_conv_i8_refusals_and_no_grad():
         qconv.conv_i8(xt, wt, out=torch.float16)
     wq, sw = qconv.quant_weight(torch.randn(8, 32, 3, 3))
     xr = torch.randn(1, 32, 5, 5, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="10b"):
-        qconv.conv2d_frozen_int8(xr, wq, sw, None)
+    y = qconv.conv2d_frozen_int8(xr, wq, sw, None)  # the STE data gradient flows
+    y.square().sum().backward()
+    assert xr.grad.shape == xr.shape and torch.isfinite(xr.grad).all() and xr.grad.abs().max() > 0
     with torch.no_grad():  # without autograd the forward runs
-        assert qconv.conv2d_frozen_int8(xr, wq, sw, None).shape == (1, 8, 5, 5)
+        assert torch.equal(qconv.conv2d_frozen_int8(xr, wq, sw, None), y.detach())
 
 
 # --- the quantized TransformerNet on the golden net -----------------------------------

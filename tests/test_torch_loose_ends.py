@@ -140,14 +140,17 @@ def run(hooks, mode="cycle", **kw):
 
 
 REFUSALS = [
-    (dict(qat=True), "item 10c"),
-    (dict(quantize_loss=True), "item 10b"),
-    (dict(quantize_gram=True), "item 10b"),
+    (dict(qat=True, fold_batch=True), "batch->H folded"),
+    (dict(quantize_loss="all", fold_batch="vgg"), "use quantize_loss='deep'"),
+    (dict(quantize_loss=3, fold_batch=True), "use quantize_loss='deep'"),
 ]
 
 
-@pytest.mark.parametrize("kw,item", REFUSALS, ids=[next(iter(kw)) for kw, _ in REFUSALS])
+@pytest.mark.parametrize("kw,item", REFUSALS,
+                         ids=["-".join(f"{k}={v}" for k, v in kw.items()) for kw, _ in REFUSALS])
 def test_refusals_name_the_int8_items(hooks, tmp_path, kw, item):
+    """The int8 options refuse only what JAX refuses: QAT with the full fold, and a
+    quantized conv1_2..conv2_2 with either fold (JAX train/loop.py:301-315)."""
     with pytest.raises(NotImplementedError, match=item):
         run(hooks, model_dir=str(tmp_path), **kw)
     assert not os.listdir(tmp_path)

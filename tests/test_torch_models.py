@@ -24,6 +24,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
     transformer_state_dict_from_jax,
     vgg16_state_dict_from_jax,
 )
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 

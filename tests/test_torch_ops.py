@@ -26,6 +26,7 @@ from artist_style_transfer_tpu_torch.ops.cuda import build as tbuild
 from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel as tgk
 from artist_style_transfer_tpu_torch.utils import jax_params
 from artist_style_transfer_tpu_torch.utils.device import resolve_device
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:

@@ -9,7 +9,11 @@ lies in exactly one class; the plan's MACs are the conv's own (``chip_smoke``'s
 ``qconv_bound`` count at the main path's shapes); the split ranges cover the K
 steps once; every main-path shape of the TransformerNet at 512² and 1024² and
 of the ResNet-50 at 256² gets a plan; the argument block matches what
-``csrc/qconv.cu`` reads.
+``csrc/qconv.cu`` reads. The training paths' shapes at 224², B=4 (the int8 VGG16
+loss extractor, the QAT TransformerNet under "all" and the int8 ResNet-50, each
+conv's forward and STE data gradient) get plans too, and each distinct geometry
+runs its full-size plan's tile through the executor at a small size, bit for
+bit, the ResNet's zero-tap sub-pixel classes (the 1x1 stride-2 dgrads) included.
 """
 
 import math
@@ -272,6 +276,100 @@ def test_plan_macs_are_qconv_bound_macs(path):
                         device="meta")
         _, _, macs = chip_smoke.qconv_bound(x, w, y, shape[2], shape[5], peaks)
         assert plan.macs == macs, shape
+
+
+def dgrad_shape(shape: tuple) -> tuple:
+    """The K2 call of the STE data gradient of the K2 conv ``shape`` (as
+    ``ops.qconv._dgrad`` makes it): dy over the flipped, transposed weight, the
+    forward's stride as lhs dilation, its lhs dilation as window stride."""
+    (n, cin, h, w), (cout, _, k, _), stride, lo, hi, d, _ = shape
+    o = qp.conv_out_size(h, k, stride, lo, hi, d)
+    p_lo, p_hi = _dgrad_pad(h, o, k, stride, d, lo)
+    return (n, cout, o, o), (cin, cout, k, k), d, p_lo, p_hi, stride, False
+
+
+def training_shapes(size: int = 224, n: int = 4) -> dict[str, list[tuple]]:
+    """The K2 convs, forward then data gradient, of a training step at size x size:
+    the VGG16 loss extractor under quantize_loss="all" (conv1_2..conv4_3), the QAT
+    TransformerNet under qat="all" (zero-padded convs over reflect-padded inputs;
+    the transpose convs lhs-dilated) and the int8 ResNet-50 at the training size."""
+    from artist_style_transfer_tpu_torch.models.transformer import DECODER_SPEC, ENCODER_SPEC
+    from artist_style_transfer_tpu_torch.models.vgg import POOL_BEFORE, VGG_CONVS
+
+    vgg, s = [], size
+    for i, (idx, ci, co) in enumerate(VGG_CONVS):
+        s //= 2 if idx in POOL_BEFORE else 1
+        if i:
+            vgg.append(((n, ci, s, s), (co, ci, 3, 3), 1, 1, 1, 1, False))
+    qat, s = [], size
+    for k, st, ci, co in ENCODER_SPEC[1:]:
+        pad = k // 2
+        qat.append(((n, ci, s + 2 * pad, s + 2 * pad), (co, ci, k, k), st, 0, 0, 1, False))
+        s = (s + 2 * pad - k) // st + 1
+    qat += [((n, 128, s + 2, s + 2), (128, 128, 3, 3), 1, 0, 0, 1, False)] * 10
+    for k, st, op, ci, co in DECODER_SPEC:
+        lo = k - 1 - k // 2
+        qat.append(((n, ci, s, s), (co, ci, k, k), 1, lo, lo + op, st, False))
+        s *= st
+    paths = {"vgg_all": vgg, "qat_all": qat, "resnet_train": resnet_shapes(size, n)}
+    return {**{f"{k}_fwd": v for k, v in paths.items()},
+            **{f"{k}_dgrad": [dgrad_shape(x) for x in v] for k, v in paths.items()}}
+
+
+TRAIN_PATHS = training_shapes()
+
+
+@pytest.mark.parametrize("path", sorted(TRAIN_PATHS))
+def test_every_training_shape_gets_a_plan(path):
+    """Every forward and dgrad conv of the training paths gets a plan the kernel can
+    launch, with one class a real output pixel (by count). The strided convs' dgrads
+    are lhs-dilated by 2: a 3x3 makes 4 classes of 1, 2, 2 and 4 taps, a 1x1 4
+    classes of which three have no tap, whose outputs the kernel writes as 0."""
+    shapes = TRAIN_PATHS[path]
+    assert len(shapes) == {"vgg": 9, "qat": 16, "res": 52}[path[:3]]
+    for shape in shapes:
+        plan = qp.plan_qconv(*shape)
+        assert 1 <= len(plan.classes) <= qp.MAX_CLASSES and plan.cin % qp.CIN_MULTIPLE == 0
+        assert 0 < plan.grid[0] < 2**31 and plan.grid[2] == plan.splits in qp.SPLITS
+        assert sum(plan.n * c.nh * c.nw for c in plan.classes) == plan.n * plan.ho * plan.wo
+        if path.endswith("dgrad"):
+            fwd = TRAIN_PATHS[path.replace("dgrad", "fwd")][shapes.index(shape)]
+            assert (plan.ho, plan.wo) == fwd[0][2:] and plan.cout == fwd[0][1]
+        if plan.dilation == 2:
+            taps = sorted(len(c.taps) for c in plan.classes)
+            assert taps == ([0, 0, 0, 1] if plan.kh == 1 else [1, 2, 2, 4])
+            assert all(c.steps == 0 for c in plan.classes if not c.taps)
+
+
+def _distinct_training_geometries():
+    out = {}
+    for path, shapes in sorted(TRAIN_PATHS.items()):
+        for (xs, ws, stride, lo, hi, d, reflect) in shapes:
+            key = (xs[1], ws[0], ws[2], stride, lo, hi, d, xs[2] % 2)
+            out.setdefault(key, (path, (xs, ws, stride, lo, hi, d, reflect)))
+    return sorted(out.values())
+
+
+@pytest.mark.parametrize("path,shape", _distinct_training_geometries(),
+                         ids=lambda v: v if isinstance(v, str) else "x{}w{}s{}p{}{}d{}".format(
+                             "-".join(map(str, v[0][1:])), v[1][0], *v[2:6]))
+def test_training_geometries_execute_to_the_plain_conv(path, shape):
+    """The tile the plan picks at the full training size, run by the executor on one
+    image of about 10x10 of the same parity, channels and geometry, equals the plain
+    conv bit for bit; every output pixel is written once, by a class with taps or
+    as a zero-tap class's 0."""
+    (n, cin, h, _), (cout, _, k, _), stride, lo, hi, d, reflect = shape
+    tile = qp.plan_qconv(*shape)
+    small = 10 + h % 2
+    xq, wq = _inputs(cin + cout + k + d, 1, cin, small, small, cout, k)
+    want = conv_i8_plain(xq, wq, stride, (lo, hi), d)
+    plan = qp.plan_qconv(tuple(xq.shape), tuple(wq.shape), stride, lo, hi, d, reflect,
+                         tile=(tile.mode, tile.bm, tile.bn, tile.splits, tile.slots, tile.group))
+    got, written = execute(plan, xq, wq)
+    assert torch.equal(got, want.contiguous()), f"{path} plan {plan.describe()}"
+    assert bool((written == 1).all())
+    if d == 2 and k == 1:  # the zero-tap classes' outputs
+        assert not got[:, :, 1::2, :].any() and not got[:, :, :, 1::2].any()
 
 
 def test_argument_blocks_match_the_kernel_source():

@@ -297,8 +297,8 @@ def test_train_classifier_hook_forms_agree(hooks, tmp_path):
 
 
 REFUSED = [
-    (dict(quantize_loss=True), NotImplementedError, "int8 slice"),
-    (dict(qat=True), NotImplementedError, "int8 slice"),
+    (dict(qat=True, fold_batch=True), NotImplementedError, "batch->H folded"),
+    (dict(quantize_loss="all", fold_batch=True), NotImplementedError, "quantize_loss='deep'"),
     (dict(mesh=object()), NotImplementedError, "parallel slice"),
     (dict(artist="Albrecht_Dürer"), ValueError, "not in tuple"),
 ]

@@ -82,9 +82,8 @@ def test_cli_precision_follows_the_compute_dtype(ws, tmp_path):
 
 LATER = [
     (["--data_parallel"], "parallel slice"),
-    (["--quantize_loss"], "int8 slice"),
-    (["--qat"], "int8 slice"),
-    (["--quantize_gram", "on"], "int8 slice"),
+    (["--qat", "--fold_batch", "on"], "batch->H folded"),
+    (["--quantize_loss", "all", "--fold_batch", "vgg"], "quantize_loss='deep'"),
 ]
 
 
@@ -93,6 +92,19 @@ def test_cli_flags_of_later_slices_reach_train(ws, tmp_path, flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli(ws, tmp_path, "--style_method", "cycle", *flags)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.mark.parametrize("flags", [["--quantize_loss"], ["--qat", "all"],
+                                   ["--quantize_gram", "on"]],
+                         ids=["quantize_loss", "qat-all", "quantize_gram-on"])
+def test_cli_int8_flags_train(ws, tmp_path, flags):
+    """The int8 flags train from directories: one epoch, finite losses, a .pth that
+    reloads."""
+    _, losses = cli(ws, tmp_path, "--style_method", "cycle", "--num_epochs", "1", *flags)
+    assert losses.shape == (1, 3) and np.isfinite(losses).all()
+    model = load_transfer_params(str(tmp_path / ARTIST / "cycle" / "transfer_17-25_1.pth"),
+                                 device="cpu")
+    assert isinstance(model, torch.nn.Module)
 
 
 DONE = [["--fold_batch", "on"], ["--fold_batch", "vgg"], ["--preview_every", "1"],

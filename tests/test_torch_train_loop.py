@@ -35,6 +35,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
     transformer_state_dict_from_jax,
     vgg16_state_dict_from_jax,
 )
+from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 SIZE, B, P = 32, 2, 3
 LR, WD, CW, SW = 0.01, 1e-4, 17.0, 25.0
