@@ -15,7 +15,10 @@ Frozen, always in inference mode: every BN runs
 ``.train()`` says, as the reference runs the classifier in ``eval()``
 (train_cnn.py:158, inference.py:62). Gradients still flow through it to its
 input in the 'classifier' training mode (train_cnn.py:311-314); its own
-weights get none. Inside, it runs in ``channels_last``.
+weights get none. Inside, it runs in ``channels_last``. Training the
+classifier itself (``train/classifier.py``) runs the same trunk through
+:func:`classifier_apply_train`, BN on batch statistics, and
+:func:`update_running_stats`.
 
 Input: NHWC, **RGB**, [0,1] torchvision-normalized.
 """
@@ -32,7 +35,7 @@ from artist_style_transfer_tpu_torch.ops.conv import (
     max_pool2d,
     max_pool_global,
 )
-from artist_style_transfer_tpu_torch.ops.norm import batch_norm_inference
+from artist_style_transfer_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
 from artist_style_transfer_tpu_torch.utils.device import resolve_device
 
 # The 19 artist classes, reference train_cnn.py:262-266 / inference.py:15-19.
@@ -73,14 +76,15 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
                                             nn.BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(_bn(conv2d(x, self.conv1.weight), self.bn1))
-        h = torch.relu(_bn(conv2d(h, self.conv2.weight, stride=self.stride, padding=1), self.bn2))
-        h = _bn(conv2d(h, self.conv3.weight), self.bn3)
+    def forward(self, x: torch.Tensor, bn=_bn) -> torch.Tensor:
+        """``bn(h, module)`` supplies the BN behaviour (frozen by default)."""
+        h = torch.relu(bn(conv2d(x, self.conv1.weight), self.bn1))
+        h = torch.relu(bn(conv2d(h, self.conv2.weight, stride=self.stride, padding=1), self.bn2))
+        h = bn(conv2d(h, self.conv3.weight), self.bn3)
         identity = x
         if self.downsample is not None:
-            conv, bn = self.downsample
-            identity = _bn(conv2d(x, conv.weight, stride=self.stride), bn)
+            conv, down_bn = self.downsample
+            identity = bn(conv2d(x, conv.weight, stride=self.stride), down_bn)
         return torch.relu(h + identity)
 
 
@@ -114,20 +118,63 @@ class ResNet50Classifier(nn.Module):
     def forward(self, x_nhwc: torch.Tensor, return_features: bool = False) -> torch.Tensor:
         """Logits (N, num_classes), or with ``return_features`` the 512-wide post-ReLU
         fc1 output (the embedding JAX's Fréchet metric reads)."""
-        body, head = self.get_submodule("0"), self.get_submodule("1")
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = torch.relu(_bn(conv2d(x, body.get_submodule("0").weight, stride=2, padding=3),
-                           body.get_submodule("1")))
-        x = max_pool2d(x, 3, 2, padding=1)
-        for i in range(len(RESNET50_STAGES)):
-            for block in body.get_submodule(str(4 + i)):
-                x = block(x)
-        feats = torch.cat([max_pool_global(x), avg_pool_global(x)], dim=1)  # (N, 4096)
-        fc1, fc2 = head.get_submodule("4"), head.get_submodule("8")
-        h = torch.relu(linear(_bn(feats, head.get_submodule("2")), fc1.weight, fc1.bias))
-        if return_features:
-            return h
-        return linear(_bn(h, head.get_submodule("6")), fc2.weight, fc2.bias)
+        return _forward(self, x_nhwc, _bn, return_features)
+
+
+def _forward(model: ResNet50Classifier, x_nhwc: torch.Tensor, bn, return_features: bool):
+    """The shared trunk (JAX ``_forward``); ``bn(h, module)`` supplies the BN behaviour."""
+    body, head = model.get_submodule("0"), model.get_submodule("1")
+    x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    x = torch.relu(bn(conv2d(x, body.get_submodule("0").weight, stride=2, padding=3),
+                      body.get_submodule("1")))
+    x = max_pool2d(x, 3, 2, padding=1)
+    for i in range(len(RESNET50_STAGES)):
+        for block in body.get_submodule(str(4 + i)):
+            x = block(x, bn)
+    feats = torch.cat([max_pool_global(x), avg_pool_global(x)], dim=1)  # (N, 4096)
+    fc1, fc2 = head.get_submodule("4"), head.get_submodule("8")
+    h = torch.relu(linear(bn(feats, head.get_submodule("2")), fc1.weight, fc1.bias))
+    if return_features:
+        return h
+    return linear(bn(h, head.get_submodule("6")), fc2.weight, fc2.bias)
+
+
+def classifier_apply_train(
+    model: ResNet50Classifier, x_nhwc: torch.Tensor, return_features: bool = False
+) -> tuple[torch.Tensor, dict[str, tuple[torch.Tensor, torch.Tensor]]]:
+    """Train-mode forward (JAX ``classifier_apply_train``): every BN normalizes by the
+    batch statistics (:func:`ops.norm.batch_norm_train`).
+
+    Returns ``(logits, bn_stats)``: ``bn_stats`` maps each BN module's name in
+    ``model`` (``"0.4.1.bn2"``, ``"1.2"``: its state-dict prefix) to its (batch mean,
+    unbiased batch variance), f32, for :func:`update_running_stats`. Differentiable
+    in the parameters the caller lets require grad; the running statistics are
+    neither read nor written.
+    """
+    names = {m: n for n, m in model.named_modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)}
+    stats: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def bn(h: torch.Tensor, m: nn.Module) -> torch.Tensor:
+        y, mean, var = batch_norm_train(h, m.weight, m.bias, m.eps)
+        stats[names[m]] = (mean, var)
+        return y
+
+    return _forward(model, x_nhwc, bn, return_features), stats
+
+
+def update_running_stats(model: ResNet50Classifier, bn_stats: dict, momentum: float = 0.1) -> None:
+    """Fold batch statistics into the BN running buffers in place, torch-style (JAX
+    ``update_running_stats``): ``running = (1 - momentum) * running + momentum * batch``,
+    the variance unbiased, as ``nn.BatchNorm{1,2}d`` in train mode, which also counts
+    the batch in ``num_batches_tracked``. BN modules missing from ``bn_stats`` keep
+    their buffers."""
+    with torch.no_grad():
+        for name, (mean, var) in bn_stats.items():
+            m = model.get_submodule(name)
+            m.running_mean.mul_(1.0 - momentum).add_(mean * momentum)
+            m.running_var.mul_(1.0 - momentum).add_(var * momentum)
+            m.num_batches_tracked.add_(1)
 
 
 def init_classifier(

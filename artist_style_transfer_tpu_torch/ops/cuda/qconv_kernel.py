@@ -22,7 +22,11 @@ The host plan (:mod:`qconv_plan`: tile, classes and their taps, split-K, and
 the shape checks) is computed once a shape and cached with its table on the
 device, so a call is one lookup, one ``torch.empty`` and one ``ctypes`` call.
 The split-K workspace is cached per device, zero between launches (the kernel
-leaves it so), and shared by the launches of one stream.
+leaves it so), and shared by the launches of one stream. Threads may launch
+at once (the serving stack's stylize and classify batchers do): a lock holds
+the workspace's growth, the table's upload, the launch and the count together,
+so no thread frees a buffer another has just handed to the kernel. All of them
+must launch on one stream, as every thread's default stream is one.
 
 The plain version, :func:`artist_style_transfer_tpu_torch.ops.qconv.conv_i8_plain`,
 lives beside the dispatcher; this wrapper takes CUDA tensors only and never
@@ -32,6 +36,7 @@ falls back.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -56,6 +61,7 @@ class _Entry(NamedTuple):
 
 _entries: dict[tuple, _Entry] = {}
 _workspaces: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_launch_lock = threading.Lock()  # the workspace, the tables, the launch and LAUNCHES
 
 
 def plan_for(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad_lo: int, pad_hi: int,
@@ -152,18 +158,20 @@ def conv_i8_cuda(
     lib = build.library()
     y = torch.empty(entry.out_shape, dtype=dtype, device=device,
                     memory_format=torch.channels_last)
-    ws, counters = _workspace(device, entry.plan) if entry.plan.splits > 1 else (None, None)
-    if index not in entry.tables:  # one copy to the device a shape, from pinned memory
-        pinned = torch.tensor(entry.plan.table(), dtype=torch.int32).pin_memory()
-        entry.tables[index] = (pinned.to(device, non_blocking=True), pinned)
-    table = entry.tables[index][0]
-    args = (entry.address, table.data_ptr(), xq.data_ptr(), wq.data_ptr(), y.data_ptr(), ws,
-            counters, s_in, sw, bias, epilogue, torch._C._cuda_getCurrentRawStream(index))
-    if index == torch.cuda.current_device():
-        code = lib.ast_qconv(*args)
-    else:
-        with torch.cuda.device(device):
+    with _launch_lock:
+        ws, counters = _workspace(device, entry.plan) if entry.plan.splits > 1 else (None, None)
+        if index not in entry.tables:  # one copy to the device a shape, from pinned memory
+            pinned = torch.tensor(entry.plan.table(), dtype=torch.int32).pin_memory()
+            entry.tables[index] = (pinned.to(device, non_blocking=True), pinned)
+        table = entry.tables[index][0]
+        args = (entry.address, table.data_ptr(), xq.data_ptr(), wq.data_ptr(), y.data_ptr(),
+                ws, counters, s_in, sw, bias, epilogue,
+                torch._C._cuda_getCurrentRawStream(index))
+        if index == torch.cuda.current_device():
             code = lib.ast_qconv(*args)
-    build.check(code, "qconv kernel launch")
-    LAUNCHES += 1
+        else:
+            with torch.cuda.device(device):
+                code = lib.ast_qconv(*args)
+        build.check(code, "qconv kernel launch")
+        LAUNCHES += 1
     return y

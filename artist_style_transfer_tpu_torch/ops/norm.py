@@ -1,5 +1,5 @@
-"""Instance norm with a hand-derived backward, and frozen batch norm (counterpart of the
-JAX ``ops/norm.py:17-167``).
+"""Instance norm with a hand-derived backward, and batch norm, frozen or in train mode
+(counterpart of the JAX ``ops/norm.py``).
 
 Both instance-norm functions are one ``torch.autograd.Function``: the forward keeps ``x``
 (already resident) and the (N, C, 1, 1) f32 statistics (f64 for f64 input), and the backward
@@ -17,6 +17,7 @@ the memory format of x, so cuDNN's dgrad after it needs no layout copy.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from artist_style_transfer_tpu_torch.ops.precision import get_precision
@@ -127,11 +128,33 @@ def batch_norm_inference(
     """Batch norm on frozen running statistics: ``x * inv + (beta - mean * inv)``.
 
     The reference runs its ResNet-50 classifier in ``eval()`` only
-    (train_cnn.py:158, inference.py:62), so this is the one BN form the port
-    needs until the classifier itself is trained. Works on NCHW (any memory
-    format; the output keeps x's) and on NC; computed in x's dtype, as JAX's.
-    Plain autograd gives the data gradient.
+    (train_cnn.py:158, inference.py:62); training the classifier itself uses
+    :func:`batch_norm_train`. Works on NCHW (any memory format; the output keeps
+    x's) and on NC; computed in x's dtype, as JAX's. Plain autograd gives the data
+    gradient.
     """
     shape = (1, -1) + (1,) * (x.dim() - 2)
     inv = torch.rsqrt(running_var + eps) * scale
     return x * inv.view(shape) + (bias - running_mean * inv).view(shape)
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = BATCH_NORM_EPS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode batch norm (JAX ``batch_norm_train``): ``(y, batch_mean,
+    batch_var_unbiased)``.
+
+    Normalizes by the batch statistics over every axis but the channel axis 1
+    (NCHW in any memory format, or NC) with the biased variance, and returns the
+    unbiased one: the pair ``nn.BatchNorm{1,2}d`` uses in train mode. One
+    ``F.batch_norm`` call (cuDNN's fused kernels on the card) computes both: its
+    running buffers start at 0 and take momentum 1, so they come back holding the
+    batch's statistics, in f32 (f64 for f64 input). Differentiable in ``x``,
+    ``scale`` and ``bias``; the statistics carry no gradient.
+    """
+    mean, var = torch.zeros((2, x.shape[1]), dtype=_stats_dtype(x), device=x.device)
+    y = F.batch_norm(x, mean, var, scale, bias, training=True, momentum=1.0, eps=eps)
+    return y, mean, var

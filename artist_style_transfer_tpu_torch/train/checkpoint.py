@@ -9,7 +9,8 @@
 - ``.npz`` parameter files in the JAX package's key layout (``encoder/0/w``,
   HWIO weights), so each package reads the other's.
 - ``.pth`` export under the reference keys in float64 (cnn.py:43), which for
-  the port is its own state dict.
+  the port is its own state dict; the trained artist classifier as the
+  reference's ``{'model': state_dict}`` (:func:`export_classifier_pth`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import warnings
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.utils.jax_params import (
+    classifier_state_dict_to_jax,
     transformer_state_dict_from_jax,
     transformer_state_dict_to_jax,
 )
@@ -137,8 +140,9 @@ def restore_checkpoint(
 
 
 def save_params_npz(path: str, model: torch.nn.Module) -> None:
-    """Flat ``.npz`` of the TransformerNet in the JAX key layout
-    (``encoder/0/w``, ``residual/3/conv1/gamma``, ``output/b``, ...)."""
+    """Flat ``.npz`` of a TransformerNet or a ResNet-50 classifier in the JAX key
+    layout (``encoder/0/w``, ``residual/3/conv1/gamma``, ``stages/1/0/down_bn/var``,
+    ...), as JAX ``save_params_npz`` writes each pytree."""
     flat: dict[str, np.ndarray] = {}
 
     def walk(node, key):
@@ -151,7 +155,9 @@ def save_params_npz(path: str, model: torch.nn.Module) -> None:
         else:
             flat[key] = node
 
-    walk(transformer_state_dict_to_jax(model.state_dict()), "")
+    to_jax = (classifier_state_dict_to_jax if isinstance(model, ResNet50Classifier)
+              else transformer_state_dict_to_jax)
+    walk(to_jax(model.state_dict()), "")
     np.savez(path, **flat)
 
 
@@ -180,3 +186,12 @@ def export_pth(path: str, model: torch.nn.Module) -> None:
     """Reference-loadable ``.pth`` state dict, tensors in float64 (cnn.py:43)."""
     sd = {k: v.detach().cpu().double().contiguous() for k, v in model.state_dict().items()}
     torch.save(sd, path)
+
+
+def export_classifier_pth(path: str, model: ResNet50Classifier) -> None:
+    """The trained artist classifier as a reference-loadable ``.pth`` (JAX
+    ``export_classifier_pth``): its state dict nested under ``{'model': ...}``, as the
+    reference loads ``models/best-2.pth`` (classifier.py:62-63), float tensors in f32
+    (the reference casts after loading, classifier.py:66)."""
+    sd = {k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}
+    torch.save({"model": sd}, path)

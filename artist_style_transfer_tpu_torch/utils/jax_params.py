@@ -3,8 +3,9 @@
 The inverse of the JAX ``utils/torch_import.py`` importers, for params given
 as numpy-array pytrees (``jax.tree.map(np.asarray, params)``), so parity
 tests can run both packages on the same weights; and, for the TransformerNet,
-the way back (:func:`transformer_state_dict_to_jax`), which writes the
-``.npz`` artifacts in the JAX key layout. This module imports neither JAX
+the TransformerNet and the classifier, the way back
+(:func:`transformer_state_dict_to_jax`, :func:`classifier_state_dict_to_jax`),
+which writes the ``.npz`` artifacts in the JAX key layout. This module imports neither JAX
 nor the JAX package.
 
 Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
@@ -25,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.models.resnet import RESNET50_STAGES
 from artist_style_transfer_tpu_torch.models.vgg import VGG_CONVS
 
 
@@ -165,6 +167,47 @@ def classifier_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     put_bn("1.6", head["bn2"])
     put_dense("1.8", head["fc2"])
     return sd
+
+
+def classifier_state_dict_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """Reference ``ArtistClassifier`` state dict -> JAX classifier pytree of f32 numpy
+    arrays (inverse of :func:`classifier_state_dict_from_jax`; JAX
+    ``classifier_params_from_torch``, ``utils/torch_import.py:121``). The
+    ``num_batches_tracked`` counters have no JAX leaf and are dropped."""
+
+    def a(key: str) -> np.ndarray:
+        return sd[key].detach().cpu().float().numpy().copy()
+
+    def conv(key: str) -> dict:
+        return {"w": np.ascontiguousarray(np.transpose(a(key), (2, 3, 1, 0)))}
+
+    def bn(prefix: str) -> dict:
+        return {k: a(f"{prefix}.{name}") for k, name in (
+            ("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+            ("var", "running_var"))}
+
+    def dense(prefix: str) -> dict:
+        return {"w": np.ascontiguousarray(a(f"{prefix}.weight").T), "b": a(f"{prefix}.bias")}
+
+    stages = []
+    for s_i, (blocks, _, _) in enumerate(RESNET50_STAGES):
+        stage = []
+        for b in range(blocks):
+            pre = f"0.{4 + s_i}.{b}"
+            block = {}
+            for i in (1, 2, 3):
+                block[f"conv{i}"] = conv(f"{pre}.conv{i}.weight")
+                block[f"bn{i}"] = bn(f"{pre}.bn{i}")
+            if f"{pre}.downsample.0.weight" in sd:
+                block["down_conv"] = conv(f"{pre}.downsample.0.weight")
+                block["down_bn"] = bn(f"{pre}.downsample.1")
+            stage.append(block)
+        stages.append(stage)
+    return {
+        "stem": {"conv": conv("0.0.weight"), "bn": bn("0.1")},
+        "stages": stages,
+        "head": {"bn1": bn("1.2"), "fc1": dense("1.4"), "bn2": bn("1.6"), "fc2": dense("1.8")},
+    }
 
 
 def quantized_transformer_from_jax(qparams: dict):

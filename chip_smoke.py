@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --profile   # plus device time by kernel: Gatys steps, a stylize
                                       # batch, 4 'cycle' training steps, an eval batch,
                                       # 4 'classifier' training steps, 8 streamed steps,
-                                      # an int8 stylize batch, an int8 eval batch and
-                                      # 4 steps of each int8 training run
+                                      # an int8 stylize batch, an int8 eval batch,
+                                      # 4 steps of each int8 training run, and a round
+                                      # of f32 and of int8 serve traffic
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -121,10 +122,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ms/step of each int8 net; ``train_style_transfer.main`` with ``--quantize_loss
     --qat`` for one epoch over 16 seeded JPEGs (its K2 launches, the ``.pth``
     reloading);
-13. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+13. train_artist_classifier: ``train/classifier.train_classifier`` on the card with the
+    full-width ResNet-50 and fastai head (25,624,659 parameters, 19 classes) at the
+    classifier CLI's defaults (256x256, B=32) on 160 seeded paintings of 19 artists,
+    each artist's tinted: 3 epochs with ``freeze_body=True`` (counters zeroed just
+    before: 0 K1 and 0 K2 launches), finite and falling train loss, every conv weight
+    bit-unchanged, every BN's running statistics moved, the BN affines and the head
+    trained; then 1 epoch with the body unfrozen; ms/step and images/s of epochs 2-3,
+    peak memory, a step's FLOPs (frozen and unfrozen) and bound; ``best-2.pth`` exported
+    and reloaded by ``load_classifier`` with the same logits; then
+    ``python -m artist_style_transfer_tpu_torch.train.classifier`` for one epoch on phase
+    data's seeded workspace (B=16), its ``best-2.pth`` and ``classifier.npz`` written and
+    loading;
+14. serve: the HTTP stack at full width (the golden TransformerNet, the classifier just
+    trained), one in-process ``make_http_server`` on 127.0.0.1:0 a registry: ``/healthz``,
+    ``/v1/models``, ``/statsz``; f32 stylize, 32 PNG requests of seeded 512x512 images from
+    8 client threads (``max_batch`` 8, ``max_wait_ms`` 3), each response > 45 dB against
+    a direct ``stylize``, fewer batches than images; a hot reload (the ``.pth`` rewritten
+    with a second seeded net, ``POST .../reload``, the next response that net's); int8
+    (``quantize=True``) stylize with 8 ``/v1/classify`` requests (300x280, one 200x180)
+    among them: > 45 dB against the f32 stylize, each batch bit-equal to a serial
+    ``stylize_int8`` of the same images, each top-1 a serial ``classifier_apply_int8``'s
+    of the same batch, K2 16 a stylize batch plus 52 a classify batch (counter zeroed
+    just before), then each path alone; 0 K1 launches over it all; served images/s,
+    p50/p99 latency, batch fill and where a request's time goes (decode, queue, the
+    batch's dispatch, encode), beside the direct ms/image; then ``python -m
+    artist_style_transfer_tpu_torch.infer.http_server`` in a subprocess with
+    ``--models-dir`` (a ``.pth`` and an ``.npz`` of one epoch: the ``.npz`` chosen),
+    ``--quantize``, ``--classifier-path`` the CLI's ``best-2.pth`` and ``--port 0``: its
+    port read from stdout, one stylize and one classify answered, exit 0 within 10 s of
+    SIGINT;
+15. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
-phases that write or read JPEGs (``eval``'s CLI step, ``data``). Without CUDA,
+phases that write or read images (``eval``'s CLI step, ``data``,
+``train_artist_classifier``, ``serve``). Without CUDA,
 or without the port's package beside it, it exits non-zero and prints no
 result.
 """
@@ -209,7 +241,30 @@ INT8_TRAIN_EPOCHS = 3
 QCONV_VGG_DEEP = 6
 QCONV_QAT = {"trunk": 13, "all": 16}
 INT8_GRAM_TAPS = (("relu3_3", 4, 256), ("relu4_3", 8, 512))  # the taps the int8 Gram takes
+INT8_TRAIN_TAPS = ("relu1_2", "relu2_2")  # the taps an int8 training step sends to K1
 INT8_CLI_CONTENT = 16
+# The artist-classifier training phase: the classifier CLI's defaults (256x256 rescale,
+# batch 32; JAX train/classifier.py:320-345) on about 160 seeded paintings of 19 artists;
+# the CLI on phase data's 80 paintings (64 to train): batch 16 gives the one-cycle
+# schedule the 4 steps it needs.
+ARTIST_CLF_IMAGES = 160
+ARTIST_CLF_SIZE = 256
+ARTIST_CLF_BATCH = 32
+ARTIST_CLF_CLASSES = 19
+ARTIST_CLF_EPOCHS = 3  # freeze_body=True; then 1 epoch with the body unfrozen
+ARTIST_CLF_CLI_BATCH = 16
+# The serve phase: the flagship 512x512 and JAX http_server.py's batcher defaults
+# (max_batch 8, max_wait_ms 3): 32 stylize requests from 8 client threads, with 8
+# classify requests at 300x280 among them, one smaller than the 256 crop.
+SERVE_SIZE = 512
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = 8
+SERVE_MAX_BATCH = 8
+SERVE_MAX_WAIT_MS = 3.0
+SERVE_CLASSIFY = 8
+SERVE_ROUNDS = 3  # timed rounds of each traffic mix, after a warm-up round: their spread
+CLASSIFY_HW = (300, 280)
+CLASSIFY_SMALL_HW = (200, 180)
 
 
 def emit(phase: str, **fields) -> None:
@@ -418,6 +473,7 @@ def phase_gram(peaks: dict) -> dict:
     main = dict.fromkeys(keys, 0.0)  # the 4 taps of a Gatys step (256², N=1, f32)
     train = dict.fromkeys(keys, 0.0)  # the 4 taps of a train step (224², N=4, f32)
     train_bf16 = dict.fromkeys(keys, 0.0)  # the same in bf16, the bf16 train step's
+    int8_train = dict.fromkeys(keys, 0.0)  # relu1_2 and relu2_2 of it: the int8 train step's
     for size, n in ((GATYS_SIZE, 1), (TRAIN_SIZE, TRAIN_BATCH), (512, 4)):
         for tap, down, c in TAPS:
             hw = (size // down) ** 2
@@ -481,12 +537,15 @@ def phase_gram(peaks: dict) -> dict:
                      kernel_tflops=flops / kernel_dev / 1e9)
                 sums = {(GATYS_SIZE, torch.float32): main, (TRAIN_SIZE, torch.float32): train,
                         (TRAIN_SIZE, torch.bfloat16): train_bf16}.get((size, dtype))
-                if sums is not None:
+                targets = [] if sums is None else [sums]
+                if (size, dtype) == (TRAIN_SIZE, torch.bfloat16) and tap in INT8_TRAIN_TAPS:
+                    targets.append(int8_train)
+                for s in targets:
                     for k, v in zip(keys, (kernel_ms, kernel_dev, plain_ms, library_ms,
                                            bound_ms, t_ops, t_bytes)):
-                        sums[k] += v
+                        s[k] += v
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, **main, "train_taps": train,
-            "train_taps_bf16": train_bf16}
+            "train_taps_bf16": train_bf16, "int8_train_taps_bf16": int8_train}
 
 
 def phase_stylize() -> None:
@@ -972,6 +1031,14 @@ def phase_train_classifier(peaks: dict, size: int = TRAIN_SIZE, device: str = "c
     return launches
 
 
+def smooth_image(cv2, rng, h: int, w: int) -> np.ndarray:
+    """A seeded uint8 BGR image: a smooth colour field with noise, which compresses and
+    decodes like a photograph rather than like white noise."""
+    coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
+    smooth = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC).astype(np.int16)
+    return np.clip(smooth + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
 def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501),
                    n_content: int = DATA_CONTENT, artists=DATA_ARTISTS) -> dict:
     """The seeded workspace of the data phase under ``root``, in the reference's layout:
@@ -987,9 +1054,7 @@ def data_workspace(root: str, size_range=(320, 641), painting_range=(200, 501),
 
     def image(lo: int, hi: int) -> np.ndarray:
         h, w = (int(v) for v in rng.integers(lo, hi, 2))
-        coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
-        smooth = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC).astype(np.int16)
-        return np.clip(smooth + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        return smooth_image(cv2, rng, h, w)
 
     ws = {k: os.path.join(root, v) for k, v in (
         ("content", "images/content"), ("archive", "images/archive"), ("cache", "dicts"),
@@ -1387,6 +1452,9 @@ def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
         groups.setdefault(key, [args, 0])[1] += 1
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "cudnn_bf16_ms")
     sums = dict.fromkeys(keys, 0.0)
+    # torch._int_mm over the 1x1 stride-1 launches it computes, and K2 over the same ones.
+    library = {"library_ms": 0.0, "library_k2_ms": 0.0, "library_k2_device_ms": 0.0,
+               "library_launches": 0, "library_failed_launches": 0}
     worst = {"s32_max_abs_err": 0, "bf16_mismatches": 0, "dequant_max_rel_err": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(7)
     for key, (args, count) in groups.items():
@@ -1439,7 +1507,14 @@ def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
              gmac=macs / 1e9, tops=2 * macs / dev / 1e9, **lib)
         for k, v in zip(keys, (ms, dev, plain_ms, bound, t_ops, t_bytes, lib["cudnn_bf16_ms"])):
             sums[k] += v * count
-    return {**sums, **worst, "launches": len(calls), "shapes": len(groups)}
+        if lib["int_mm_ms"] is not None:
+            library["library_ms"] += lib["int_mm_ms"] * count
+            library["library_k2_ms"] += ms * count
+            library["library_k2_device_ms"] += dev * count
+            library["library_launches"] += count
+        elif "int_mm_error" in lib:
+            library["library_failed_launches"] += count
+    return {**sums, **library, **worst, "launches": len(calls), "shapes": len(groups)}
 
 
 def decisive_classifier(device: str, artist: int):
@@ -1881,6 +1956,709 @@ def eval_cli_int8(tmp: str, pth: str, model, clf, artist: int) -> dict:
             "k2_launches": launches}
 
 
+def artist_corpus(n: int = ARTIST_CLF_IMAGES, size: int = ARTIST_CLF_SIZE,
+                  classes: int = ARTIST_CLF_CLASSES) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded paintings of ``classes`` artists, artist ``i % classes`` for image ``i``,
+    each artist's tinted by a colour of its own so that the classifier can learn them:
+    NHWC RGB torchvision-normalized f32 (what ``get_painting_dataset(for_classifier=True)``
+    yields) and int32 labels."""
+    import cv2
+
+    from artist_style_transfer_tpu_torch.ops.image import (
+        TORCHVISION_MEAN_RGB,
+        TORCHVISION_STD_RGB,
+    )
+
+    rng = np.random.default_rng(11)
+    tints = rng.uniform(-60.0, 60.0, (classes, 3))
+    labels = np.arange(n) % classes
+    images = np.empty((n, size, size, 3), np.float32)
+    for i, artist in enumerate(labels):
+        bgr = np.clip(smooth_image(cv2, rng, size, size) + tints[artist], 0.0, 255.0)
+        images[i] = (bgr[..., ::-1] / 255.0 - TORCHVISION_MEAN_RGB) / TORCHVISION_STD_RGB
+    return images, labels.astype(np.int32)
+
+
+def phase_train_artist_classifier(peaks: dict | None, smi: str, device: str = "cuda",
+                                  n: int = ARTIST_CLF_IMAGES, size: int = ARTIST_CLF_SIZE,
+                                  batch: int = ARTIST_CLF_BATCH,
+                                  workspace=data_workspace) -> dict:
+    """``train_classifier`` at full width on a seeded corpus, its export, and the classifier
+    CLI on phase data's seeded workspace. Returns the best model, the CLI's ``best-2.pth``
+    (for phase serve), the temp dir holding it, and the K1 launches of the main path."""
+    import copy
+
+    import torch.nn.functional as F
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from artist_style_transfer_tpu_torch.models.resnet import (
+        classifier_apply_train,
+        init_classifier,
+        load_classifier,
+    )
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel, qconv_kernel
+    from artist_style_transfer_tpu_torch.train import classifier as tclf
+    from artist_style_transfer_tpu_torch.train.checkpoint import export_classifier_pth
+
+    on_card = device != "cpu"
+    images, labels = artist_corpus(n, size)
+    init = init_classifier(torch.Generator().manual_seed(2), device)
+    params = sum(p.numel() for p in init.parameters())
+    require(params == 25_624_659, f"artist classifier: {params} parameters, not full width")
+    n_val = int(round(n * 0.2))
+    steps = (n - n_val) // batch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_artist_clf_")
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    kw = dict(batch_size=batch, seed=2, wordy=False, device=device)
+
+    # The main path: freeze_body=True, counters zeroed just before, read just after.
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    gram_kernel.LAUNCHES = qconv_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    best, hist = tclf.train_classifier(images, labels, num_epochs=ARTIST_CLF_EPOCHS,
+                                       freeze_body=True, model=init, metrics_path=metrics, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    k1, k2 = gram_kernel.LAUNCHES, qconv_kernel.LAUNCHES
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    epochs = [e for e in read_jsonl(metrics) if e["event"] == "classifier_epoch"]
+    losses = hist["train_loss"]
+    require(len(epochs) == ARTIST_CLF_EPOCHS and bool(np.isfinite(losses).all()),
+            f"train_artist_classifier: epoch losses {losses}")
+    require(losses[-1] < losses[0], f"train_artist_classifier: train loss {losses} not falling")
+    require(k1 == 0 and k2 == 0,
+            f"train_artist_classifier: {k1} K1 and {k2} K2 launches on a path with neither")
+    start, trained = init.state_dict(), best.state_dict()
+    convs = [f"{name}.weight" for name, m in init.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    moved = [k for k in convs if not torch.equal(trained[k], start[k])]
+    require(len(convs) == 53 and not moved,
+            f"train_artist_classifier: frozen conv weights changed: {moved[:4]}")
+    bns = [name for name, m in init.named_modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    stats_moved = [b for b in bns if not torch.equal(trained[f"{b}.running_mean"],
+                                                       start[f"{b}.running_mean"])
+                   and not torch.equal(trained[f"{b}.running_var"], start[f"{b}.running_var"])]
+    require(len(stats_moved) == len(bns) == 55,
+            f"train_artist_classifier: {len(stats_moved)} of {len(bns)} BN statistics moved")
+    require(not torch.equal(trained["0.1.weight"], start["0.1.weight"])
+            and not torch.equal(trained["1.8.weight"], start["1.8.weight"]),
+            "train_artist_classifier: the BN affines or the head did not train")
+    warm = epochs[1:]
+    warm_s = sum(e["secs"] for e in warm)
+
+    # One epoch with the body unfrozen, from the frozen run's best.
+    unfrozen, hist_u = tclf.train_classifier(images, labels, num_epochs=1, freeze_body=False,
+                                             model=best, **kw)
+    require(bool(np.isfinite(hist_u["train_loss"]).all()),
+            f"train_artist_classifier unfrozen: {hist_u}")
+    require(any(not torch.equal(unfrozen.state_dict()[k], trained[k]) for k in convs),
+            "train_artist_classifier unfrozen: no conv weight trained")
+
+    # The FLOPs of one step (forward, dgrad, and wgrad where a weight trains) and their
+    # bound at f32 accuracy, as the other train phases count them.
+    xb = torch.as_tensor(images[:batch], device=device)
+    yb = torch.as_tensor(labels[:batch], dtype=torch.int64, device=device)
+    flops = {}
+    for freeze in (True, False):
+        m = copy.deepcopy(init)
+        tclf.make_classifier_optimizer(m, 1e-3, 4, 1e-2, freeze)
+        with FlopCounterMode(display=False) as counter:
+            logits, _ = classifier_apply_train(m, xb)
+            F.cross_entropy(logits, yb).backward()
+        flops["frozen" if freeze else "unfrozen"] = counter.get_total_flops()
+        del m
+    bound_ms = (min(flops["frozen"] / peaks["fp32"], 3 * flops["frozen"] / peaks["tf32"]) * 1e3
+                if peaks else None)
+
+    # The export reloads with the same logits.
+    pth = os.path.join(tmp, "best-2.pth")
+    export_classifier_pth(pth, best)
+    x = torch.as_tensor(images[:4], device=device)
+    with torch.inference_mode():
+        same = torch.equal(best(x), load_classifier(pth, device)(x))
+    require(same, "train_artist_classifier: the exported best-2.pth gives other logits")
+
+    # The classifier CLI on phase data's seeded workspace, one epoch, in a subprocess run
+    # from the workspace's root (the reference's relative data paths).
+    root = os.path.join(tmp, "ws")
+    workspace(root)
+    out_dir = os.path.join(tmp, "cli_models")
+    cmd = [sys.executable, "-m", "artist_style_transfer_tpu_torch.train.classifier",
+           "--num_epochs", "1", "--batch_size", str(ARTIST_CLF_CLI_BATCH),
+           "--out_dir", out_dir, "--metrics", os.path.join(tmp, "cli_metrics.jsonl")]
+    if not on_card:
+        cmd += ["--device", device, "--rescale_height", str(size), "--rescale_width", str(size)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=port_env(), capture_output=True, text=True,
+                          timeout=900)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"classifier CLI exited {proc.returncode}: "
+                                  f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+    cli_pth = os.path.join(out_dir, "best-2.pth")
+    require("exported" in proc.stdout and os.path.exists(cli_pth)
+            and os.path.exists(os.path.join(out_dir, "classifier.npz")),
+            f"classifier CLI: {proc.stdout[-500:]}")
+    cli_epochs = [e for e in read_jsonl(os.path.join(tmp, "cli_metrics.jsonl"))
+                  if e["event"] == "classifier_epoch"]
+    with torch.inference_mode():
+        cli_logits = load_classifier(cli_pth, device)(x).float()
+    require(tuple(cli_logits.shape) == (4, 19) and bool(torch.isfinite(cli_logits).all()),
+            f"classifier CLI: best-2.pth logits {tuple(cli_logits.shape)}")
+    emit("train_artist_classifier", size=size, batch=batch, images=n, classes=ARTIST_CLF_CLASSES,
+         params=params, epochs=ARTIST_CLF_EPOCHS, steps_per_epoch=steps,
+         epoch_losses=losses, train_acc=hist["train_acc"], val_acc=hist["val_acc"],
+         unfrozen_loss=hist_u["train_loss"], unfrozen_val_acc=hist_u["val_acc"],
+         k1_launches=k1, k2_launches=k2, seconds=seconds,
+         epoch_secs=[e["secs"] for e in epochs],
+         ms_per_step=warm_s * 1e3 / (len(warm) * steps),
+         images_per_sec=len(warm) * steps * batch / warm_s,
+         times_are="host clock over epochs 2-3, each epoch's validation pass included",
+         step_gflop={k: v / 1e9 for k, v in flops.items()}, step_bound_ms=bound_ms,
+         step_bound_share=(bound_ms * len(warm) * steps / (warm_s * 1e3)
+                           if bound_ms else None),
+         peak_mem_gib=peak_gib, bn_stats_moved=len(stats_moved), frozen_convs=len(convs),
+         cli={"seconds": cli_s, "epochs": cli_epochs, "stdout_tail": proc.stdout[-200:]},
+         card=smi)
+    return {"best": best, "cli_pth": cli_pth, "tmp": tmp, "launches": k1}
+
+
+def port_env() -> dict:
+    """The environment of a subprocess that imports the port from this checkout."""
+    path = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": ROOT if not path else ROOT + os.pathsep + path}
+
+
+def timed_server(**kw):
+    """A ``StylizeServer`` that stamps each request: ``t_submit`` when it is queued,
+    ``t_taken`` when the worker takes its batch, ``t_done`` when its result is set (the
+    batch's stack, copies and forward); and records each batch (input, output) while
+    ``batches`` is a list."""
+    from artist_style_transfer_tpu_torch.infer.serve import StylizeServer, _apply_params
+
+    class TimedServer(StylizeServer):
+        def __init__(self, **kw):
+            self.batches, self.futures = None, []
+            super().__init__(apply_fn=self._recorded, **kw)
+
+        def submit(self, image, model=None):
+            t = time.perf_counter()
+            fut = super().submit(image, model)
+            fut.t_submit = t
+            fut.add_done_callback(lambda f: setattr(f, "t_done", time.perf_counter()))
+            self.futures.append(fut)
+            return fut
+
+        def _take_batch(self):
+            item = super()._take_batch()
+            if item is not None:
+                t = time.perf_counter()
+                for _, fut in item[1]:
+                    fut.t_taken = t
+            return item
+
+        def _recorded(self, params, images):
+            out = _apply_params(params, images)
+            if self.batches is not None:
+                self.batches.append((images.cpu().numpy(), out))
+            return out
+
+    return TimedServer(**kw)
+
+
+class TimedCv2:
+    """OpenCV with ``imdecode`` and ``imencode`` timed: (shape, seconds) of each call."""
+
+    def __init__(self, cv2):
+        self._cv2, self.decode, self.encode = cv2, [], []
+
+    def __getattr__(self, name):
+        return getattr(self._cv2, name)
+
+    def imdecode(self, *args):
+        t = time.perf_counter()
+        out = self._cv2.imdecode(*args)
+        self.decode.append((None if out is None else out.shape, time.perf_counter() - t))
+        return out
+
+    def imencode(self, ext, img, *args):
+        t = time.perf_counter()
+        out = self._cv2.imencode(ext, img, *args)
+        self.encode.append((img.shape, time.perf_counter() - t))
+        return out
+
+
+def http_post(url: str, body: bytes) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_get(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        require(r.status == 200, f"GET {url}: {r.status}")
+        return json.loads(r.read())
+
+
+# The load generator of phase serve, run in a process of its own so that its threads do
+# not compete with the server's for the interpreter lock: argv[1] is the JSON of [base,
+# [[path, body file], ...], clients, out dir]; client k sends requests k, k + clients, ...
+# one at a time. Prints the round's wall seconds and [status, response file, seconds] of
+# each request; the responses are written after the round.
+SERVE_CLIENT = """
+import json, sys, threading, time, urllib.error, urllib.request
+base, reqs, clients, out_dir = json.loads(sys.argv[1])
+bodies = [open(f, "rb").read() for _, f in reqs]
+res = [None] * len(reqs)
+def post(i):
+    t = time.perf_counter()
+    req = urllib.request.Request(base + reqs[i][0], data=bodies[i], method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    res[i] = [status, body, time.perf_counter() - t]
+def client(k):
+    for i in range(k, len(reqs), clients):
+        post(i)
+threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+for i, r in enumerate(res):
+    with open(f"{out_dir}/{i}.out", "wb") as f:
+        f.write(r[1])
+    r[1] = f"{out_dir}/{i}.out"
+print(json.dumps({"wall": wall, "results": res}))
+"""
+
+
+def http_round(base: str, requests: list[tuple[str, str]], clients: int = SERVE_CLIENTS):
+    """Send ``requests`` (path, body file) from ``clients`` threads of a client process
+    (``SERVE_CLIENT``); returns [(status, body, seconds)] in request order and the wall
+    seconds of the round."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_client_")
+    try:
+        proc = subprocess.run([sys.executable, "-c", SERVE_CLIENT,
+                               json.dumps([base, requests, clients, out_dir])],
+                              capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"serve client: {proc.stderr[-1500:]}")
+        out = json.loads(proc.stdout)
+        results = []
+        for status, path, seconds in out["results"]:
+            with open(path, "rb") as fh:
+                results.append((status, fh.read(), seconds))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return results, out["wall"]
+
+
+def warm_batches(srv, images: list[np.ndarray], model: str | None = None) -> None:
+    """A batch of each size 1..SERVE_MAX_BATCH through the server's worker thread:
+    cuDNN and cuBLAS keep their handles per thread, and each batch size meets its first
+    call here rather than inside a timed request."""
+    for b in range(1, SERVE_MAX_BATCH + 1):
+        futs = [srv.submit(im, model=model) for im in images[:b]]
+        for fut in futs:
+            fut.result(timeout=600)
+
+
+def image_key(im: np.ndarray) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(im).tobytes()).digest()
+
+
+def round_report(results, wall: float, server, stats0: dict, stats1: dict, cv2t: TimedCv2,
+                 size: int) -> dict:
+    """Served images/s, request latency percentiles, batch fill, and where a stylize
+    request's time went (means, ms): the server's decode, the queue (submit to the
+    batch's take), the batch's dispatch (stack, copies, forward, clip), the encode; and
+    the rest (HTTP and the handler) to the client's latency."""
+    lat = np.array([r[2] for r in results]) * 1e3
+    futs = server.futures[-len(results):]
+    queue = np.mean([(f.t_taken - f.t_submit) * 1e3 for f in futs])
+    device = np.mean([(f.t_done - f.t_taken) * 1e3 for f in futs])
+    decode = np.mean([s * 1e3 for shape, s in cv2t.decode if shape and shape[:2] == (size, size)])
+    encode = np.mean([s * 1e3 for shape, s in cv2t.encode if shape[:2] == (size, size)])
+    batches = stats1["batches"] - stats0["batches"]
+    images = stats1["images"] - stats0["images"]
+    return {"requests": len(results), "wall_s": wall, "images_per_sec": images / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max()), "batches": batches, "images": images,
+            "mean_batch_fill": images / batches,
+            "split_ms": {"decode": decode, "queue": queue, "device": device, "encode": encode,
+                         "rest": float(lat.mean()) - decode - queue - device - encode}}
+
+
+def check_int8_round(results, wall: float, mixed, images, clf_images, direct, srv_q,
+                     clf_batches, qmodel, qclf, stats0: dict, stats1: dict, cv2t: TimedCv2,
+                     size: int, device: str) -> dict:
+    """One int8 round of phase serve held to serial runs of the same batch compositions
+    (each stylize batch bit-equal to ``stylize_int8`` of its images, each classify
+    batch's top-1 equal to ``classifier_apply_int8``'s), each response to its batch's
+    output, and the stylize outputs to the f32 stylize (> 45 dB); returns its report."""
+    import cv2
+
+    from artist_style_transfer_tpu_torch.infer import http_server as hs
+    from artist_style_transfer_tpu_torch.infer.stylize import stylize_int8
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
+    from artist_style_transfer_tpu_torch.models.resnet_q import classifier_apply_int8
+    from artist_style_transfer_tpu_torch.ops.image import bgr_to_rgb, torchvision_normalize
+
+    served = {}
+    for inp, out in srv_q.batches:
+        serial = stylize_int8(qmodel, inp, device=device).cpu().numpy()
+        require(np.array_equal(serial, out), "serve int8: a batch differs from a serial "
+                                             "stylize_int8 of the same images")
+        served.update({image_key(im): o for im, o in zip(inp, out)})
+    top1, probs_diff = {}, 0.0
+    for inp, probs in clf_batches:
+        with torch.inference_mode():
+            xq = torch.as_tensor(inp, device=device)
+            logits = classifier_apply_int8(qclf, torchvision_normalize(
+                bgr_to_rgb(xq.float()) / 255.0))
+            serial = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        require(np.array_equal(serial.argmax(-1), probs.argmax(-1)),
+                "serve classify: a batch's top-1 differs from a serial classifier_apply_int8")
+        probs_diff = max(probs_diff, float(np.abs(serial - probs).max()))
+        top1.update({image_key(im): int(p.argmax()) for im, p in zip(inp, probs)})
+    s_results = [r for r, q in zip(results, mixed) if q[0].startswith("/v1/stylize")]
+    c_results = [r for r, q in zip(results, mixed) if q[0] == "/v1/classify"]
+    dbs = []
+    for r, im, d in zip(s_results, images, direct):
+        got = cv2.imdecode(np.frombuffer(r[1], np.uint8), cv2.IMREAD_COLOR)
+        require(np.array_equal(got, served[image_key(im)]),
+                "serve int8: a response is not its batch's output")
+        dbs.append(psnr(got, d))
+    require(min(dbs) > 45.0, f"serve int8: {min(dbs)} dB against the f32 stylize")
+    answers = []
+    for r, im in zip(c_results, clf_images):
+        out = json.loads(r[1])
+        want = top1[image_key(hs.classify_crop(cv2, im))]
+        require(out["index"] == want and out["artist"] == ARTISTS_19[want]
+                and len(out["top3"]) == 3, f"serve classify: {out} vs serial top-1 {want}")
+        answers.append(out["index"])
+    report = round_report(s_results, wall, srv_q, {"batches": 0, "images": 0},
+                          {"batches": len(srv_q.batches), "images": len(s_results)}, cv2t, size)
+    return {**report, "served_per_sec": len(results) / wall, "min_psnr_vs_f32_db": min(dbs),
+            "classify_batches": stats1["classify"]["batches"] - stats0["classify"]["batches"],
+            "classify_images": stats1["classify"]["images"] - stats0["classify"]["images"],
+            "classify_p50_ms": float(np.percentile([r[2] * 1e3 for r in c_results], 50)),
+            "classify_answers": answers, "classify_probs_max_diff": probs_diff,
+            "stylize_batches_bit_equal": len(srv_q.batches)}
+
+
+def medians(rounds: list[dict]) -> dict:
+    """The median of each number the rounds share (a split's parts included)."""
+    out = {}
+    for k, v in rounds[0].items():
+        if isinstance(v, dict):
+            out[k] = medians([r[k] for r in rounds])
+        elif isinstance(v, (int, float)):
+            out[k] = float(np.median([r[k] for r in rounds]))
+    return out
+
+
+def phase_serve(smi: str, clf, clf_cli_pth: str, device: str = "cuda", size: int = SERVE_SIZE,
+                profile: bool = False) -> dict:
+    """The HTTP serving stack at full width: one in-process ``make_http_server`` for f32
+    stylize (then a hot reload), one for int8 stylize and classify together, then the
+    ``main`` CLI in a subprocess. Returns the K1 and K2 launches by path."""
+    import threading
+
+    import cv2
+
+    from artist_style_transfer_tpu_torch.infer import http_server as hs
+    from artist_style_transfer_tpu_torch.infer.serve import ModelRegistry
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize
+    from artist_style_transfer_tpu_torch.models.resnet_q import quantize_classifier
+    from artist_style_transfer_tpu_torch.models.transformer import init_transformer
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel, qconv_kernel
+    from artist_style_transfer_tpu_torch.train.checkpoint import export_pth, save_params_npz
+
+    on_card = device != "cpu"
+    name = "Golden/random"
+    golden_pth = os.path.join(GOLDENS, "golden_transfer.pth")
+    golden = load_transfer_params(golden_pth, device)
+    rng = np.random.default_rng(21)
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(SERVE_REQUESTS)]
+    bodies = [cv2.imencode(".png", im)[1].tobytes() for im in images]
+    clf_images = [rng.integers(0, 256, (*CLASSIFY_HW, 3), dtype=np.uint8)
+                  for _ in range(SERVE_CLASSIFY - 1)]
+    clf_images.append(rng.integers(0, 256, (*CLASSIFY_SMALL_HW, 3), dtype=np.uint8))
+    clf_bodies = [cv2.imencode(".png", im)[1].tobytes() for im in clf_images]
+
+    # The direct stylize of each image, one at a time: what a served image is held to.
+    direct = [stylize(golden, im[None], device=device)[0].cpu().numpy() for im in images]
+    direct_ms = {}
+    if on_card:
+        x = torch.as_tensor(np.stack(images[:SERVE_MAX_BATCH]), device=device)
+
+    cv2t = TimedCv2(cv2)
+    real_cv2 = hs._cv2
+    hs._cv2 = lambda: cv2t
+    servers = []
+
+    def start(registry, **kw):
+        srv = timed_server(registry=registry, max_batch=SERVE_MAX_BATCH,
+                           max_wait_ms=SERVE_MAX_WAIT_MS, device=device)
+        httpd = hs.make_http_server(registry, srv, host="127.0.0.1", port=0,
+                                    request_timeout_s=600.0, **kw)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append((httpd, srv))
+        return httpd, srv, f"http://127.0.0.1:{httpd.server_port}"
+
+    def body_files(kind: str, blobs: list[bytes]) -> list[str]:
+        paths = [os.path.join(tmp, f"{kind}{i}.png") for i in range(len(blobs))]
+        for path, blob in zip(paths, blobs):
+            with open(path, "wb") as fh:
+                fh.write(blob)
+        return paths
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        stylize_req = [(f"/v1/stylize?model={name}&format=png", f)
+                       for f in body_files("s", bodies)]
+        classify_req = [("/v1/classify", f) for f in body_files("c", clf_bodies)]
+        per = SERVE_REQUESTS // SERVE_CLASSIFY
+        mixed = [r for i in range(SERVE_CLASSIFY)
+                 for r in stylize_req[i * per:(i + 1) * per] + classify_req[i:i + 1]]
+        gram_kernel.LAUNCHES = 0  # K1 over every serve path below: none computes a Gram
+        # --- f32 stylize: a registry on a .pth file (reloaded below) ---
+        reload_pth = os.path.join(tmp, "transfer_17-25_2.pth")
+        shutil.copy(golden_pth, reload_pth)
+        registry = ModelRegistry(device=device)
+        registry.register(name, path=reload_pth)
+        httpd, srv, base = start(registry, classifier_params=clf)
+        require(http_get(base + "/healthz") == {"status": "ok"}, "serve: /healthz")
+        require(http_get(base + "/v1/models") == {"models": [name]}, "serve: /v1/models")
+        warm_batches(srv, images, name)
+        http_round(base, stylize_req)  # warm-up round
+        f32_rounds = []
+        for _ in range(SERVE_ROUNDS):
+            cv2t.decode.clear()
+            cv2t.encode.clear()
+            stats0 = http_get(base + "/statsz")
+            results, wall = http_round(base, stylize_req)
+            stats1 = http_get(base + "/statsz")
+            require(all(r[0] == 200 for r in results),
+                    f"serve f32: statuses {[r[0] for r in results]}")
+            dbs = [psnr(cv2.imdecode(np.frombuffer(r[1], np.uint8), cv2.IMREAD_COLOR), d)
+                   for r, d in zip(results, direct)]
+            require(min(dbs) > 45.0, f"serve f32: {min(dbs)} dB against a direct stylize")
+            report = round_report(results, wall, srv, stats0, stats1, cv2t, size)
+            require(report["batches"] < report["images"],
+                    f"serve f32: {report['batches']} batches for {report['images']} images: "
+                    "no coalescing")
+            f32_rounds.append({**report, "min_psnr_db": min(dbs)})
+        if on_card:
+            with torch.inference_mode():
+                direct_ms["stylize"] = time_ms(lambda: golden(x.float()).clamp(0, 255).to(
+                    torch.uint8).cpu(), iters=5) / SERVE_MAX_BATCH
+        if profile:
+            profile_window("serve_f32", lambda: http_round(base, stylize_req), SERVE_REQUESTS,
+                           "request")
+
+        # Hot reload: the file rewritten with a second seeded net, then POST .../reload.
+        second = init_transformer(torch.Generator().manual_seed(1)).to(device).eval()
+        export_pth(reload_pth, second)
+        status, body = http_post(base + f"/v1/models/{name}/reload", b"")
+        require(status == 200 and json.loads(body) == {"model": name, "reloaded": True},
+                f"serve reload: {status} {body[:200]}")
+        status, body = http_post(base + stylize_req[0][0], bodies[0])
+        got = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        want = stylize(second, images[0][None], device=device)[0].cpu().numpy()
+        reload_db, old_db = psnr(got, want), psnr(got, direct[0])
+        require(status == 200 and reload_db > 45.0 and old_db < 30.0,
+                f"serve reload: {reload_db} dB to the new net, {old_db} dB to the old")
+
+        # --- int8 stylize and classify together ---
+        registry_q = ModelRegistry(quantize=True, device=device)
+        registry_q.register(name, path=golden_pth)
+        qmodel = registry_q.get(name)
+        httpd_q, srv_q, base_q = start(registry_q, classifier_params=clf)
+        warm_batches(srv_q, images, name)
+        require(http_post(base_q + "/v1/classify", clf_bodies[0])[0] == 200,
+                "serve: the classify cold start failed")
+        clf_srv = httpd_q.RequestHandlerClass.server_ctx["clf_state"]["server"]
+        warm_batches(clf_srv, [hs.classify_crop(cv2, im) for im in images])
+        http_round(base_q, mixed)  # warm-up round
+        clf_batches, real_apply = [], clf_srv._apply
+
+        def recorded(p, xb):
+            out = real_apply(p, xb)
+            clf_batches.append((xb.cpu().numpy(), out))
+            return out
+
+        clf_srv._apply = recorded
+        qclf = quantize_classifier(clf)
+        int8_rounds = []
+        k2_mixed = k1_mixed = s_batches = c_batches = 0
+        for _ in range(SERVE_ROUNDS):
+            srv_q.batches = []
+            clf_batches.clear()
+            cv2t.decode.clear()
+            cv2t.encode.clear()
+            stats0 = http_get(base_q + "/statsz")
+            # The counters zeroed just before the round and read just after it; the
+            # serial replays of check_int8_round launch K2 too and stay outside.
+            sync()
+            qconv_kernel.LAUNCHES = 0
+            k1_before = gram_kernel.LAUNCHES
+            results, wall = http_round(base_q, mixed)
+            sync()
+            k2_mixed += qconv_kernel.LAUNCHES
+            k1_mixed += gram_kernel.LAUNCHES - k1_before
+            stats1 = http_get(base_q + "/statsz")
+            s_batches += stats1["batches"] - stats0["batches"]
+            c_batches += stats1["classify"]["batches"] - stats0["classify"]["batches"]
+            require(all(r[0] == 200 for r in results),
+                    f"serve int8: statuses {[r[0] for r in results]}")
+            int8_rounds.append(check_int8_round(
+                results, wall, mixed, images, clf_images, direct, srv_q, clf_batches, qmodel,
+                qclf, stats0, stats1, cv2t, size, device))
+        want_k2 = QCONV_TRANSFORMER * s_batches + QCONV_RESNET * c_batches
+        require(not on_card or (k2_mixed == want_k2 and k1_mixed == 0),
+                f"serve int8: {k2_mixed} K2 launches, not 16 x {s_batches} + 52 x {c_batches}; "
+                f"{k1_mixed} K1")
+        srv_q.batches = None
+        clf_srv._apply = real_apply
+        if on_card:
+            with torch.inference_mode():
+                direct_ms["stylize_int8"] = time_ms(lambda: qmodel(x, accum=torch.bfloat16)
+                                                    .float().clamp(0, 255).to(torch.uint8)
+                                                    .cpu(), iters=5) / SERVE_MAX_BATCH
+        # Each path alone, its counter zeroed just before and read just after.
+        counts = {}
+        for path, reqs, per_batch, key in (("serve_int8_stylize", stylize_req, QCONV_TRANSFORMER,
+                                            None),
+                                           ("serve_classify", classify_req, QCONV_RESNET,
+                                            "classify")):
+            s0 = http_get(base_q + "/statsz")
+            sync()
+            qconv_kernel.LAUNCHES = 0
+            rs, _ = http_round(base_q, reqs)
+            sync()
+            counts[path] = qconv_kernel.LAUNCHES
+            s1 = http_get(base_q + "/statsz")
+            s0, s1 = (s[key] if key else s for s in (s0, s1))
+            nb = s1["batches"] - s0["batches"]
+            require(all(r[0] == 200 for r in rs), f"{path}: statuses {[r[0] for r in rs]}")
+            require(not on_card or counts[path] == per_batch * nb,
+                    f"{path}: {counts[path]} K2 launches, not {per_batch} x {nb} batches")
+        if profile:
+            profile_window("serve_int8", lambda: http_round(base_q, mixed), len(mixed), "request")
+        k1 = gram_kernel.LAUNCHES
+        require(k1 == 0, f"serve: {k1} K1 launches on paths with no Gram")
+
+        # --- the CLI in a subprocess: a reference tree with a .pth and an .npz of one epoch ---
+        tree = os.path.join(tmp, "models", "Golden", "random")
+        os.makedirs(tree)
+        export_pth(os.path.join(tree, "transfer_17-25_2.pth"), golden)
+        save_params_npz(os.path.join(tree, "transfer_17-25_2.npz"), golden)
+        cli = serve_cli(os.path.join(tmp, "models"), clf_cli_pth, device, bodies[0], direct[0],
+                        clf_bodies[0])
+    finally:
+        hs._cv2 = real_cv2
+        for httpd, srv in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.close()
+            hs.close_classify_server(httpd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("serve", size=size, requests=SERVE_REQUESTS, clients=SERVE_CLIENTS,
+         max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS, rounds=SERVE_ROUNDS,
+         f32=medians(f32_rounds), int8=medians(int8_rounds), f32_rounds=f32_rounds,
+         int8_rounds=int8_rounds, int8_k2_launches=k2_mixed, int8_k1_launches=k1_mixed,
+         int8_stylize_batches=s_batches, int8_classify_batches=c_batches,
+         reload_psnr_db=reload_db, reload_psnr_vs_old_db=old_db,
+         direct_ms_per_image=direct_ms, k2_launches=counts, k1_launches=k1, cli=cli, card=smi)
+    return {"k1_launches": {"serve": k1}, "launches": counts}
+
+
+def serve_cli(models_dir: str, clf_pth: str, device: str, body: bytes, direct: np.ndarray,
+              clf_body: bytes) -> dict:
+    """``python -m ...infer.http_server`` with ``--quantize``, a classifier and ``--port 0``:
+    the .npz chosen, its port read from stdout, one stylize and one classify answered, and
+    an exit 0 within 10 s of SIGINT."""
+    import queue
+    import signal
+    import threading
+
+    import cv2
+
+    cmd = [sys.executable, "-m", "artist_style_transfer_tpu_torch.infer.http_server",
+           "--models-dir", models_dir, "--quantize", "--classifier-path", clf_pth,
+           "--host", "127.0.0.1", "--port", "0"]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=port_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read() -> None:
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    seen = []
+    try:
+        while not (seen and seen[-1].startswith("serving")):
+            try:
+                line = lines.get(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                line = None
+            require(line is not None, f"serve CLI: no 'serving' line: {''.join(seen)[-1500:]}")
+            seen.append(line)
+        startup_s = time.perf_counter() - t0
+        npz = os.path.join(models_dir, "Golden", "random", "transfer_17-25_2.npz")
+        require(f"registered Golden/random <- {npz}\n" in seen,
+                f"serve CLI: the .npz was not chosen: {seen}")
+        port = int(seen[-1].rsplit(":", 1)[1])
+        base = f"http://127.0.0.1:{port}"
+        status, out = http_post(base + "/v1/stylize?model=Golden/random&format=png", body)
+        got = cv2.imdecode(np.frombuffer(out, np.uint8), cv2.IMREAD_COLOR)
+        require(status == 200 and got is not None, f"serve CLI stylize: {status} {out[:200]}")
+        db = psnr(got, direct)
+        require(db > 45.0, f"serve CLI: int8 stylize {db} dB against the f32 stylize")
+        status, out = http_post(base + "/v1/classify", clf_body)
+        require(status == 200, f"serve CLI classify: {status} {out[:200]}")
+        answer = json.loads(out)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            code = proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            code = None
+        stop_s = time.perf_counter() - t1
+        require(code == 0, f"serve CLI: exit {code} {stop_s:.1f} s after SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    return {"startup_s": startup_s, "port": port, "stylize_psnr_vs_f32_db": db,
+            "classify": answer, "sigint_exit_s": stop_s, "exit_code": code}
+
+
 def sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -2124,13 +2902,21 @@ def main(argv=None) -> int:
     launches.update(int8["k1_launches"])
     int8_train = phase_int8_train(peaks, smi)
     launches.update(int8_train["k1_launches"])
+    artist_clf = phase_train_artist_classifier(peaks, smi)
+    launches["train_artist_classifier"] = artist_clf["launches"]
+    try:
+        serve = phase_serve(smi, artist_clf["best"], artist_clf["cli_pth"], profile=args.profile)
+    finally:
+        shutil.rmtree(artist_clf["tmp"], ignore_errors=True)
+    launches.update(serve["k1_launches"])
     if args.profile:
         phase_profile()
     print(smi, flush=True)
     # K2's times: the sums over the 68 launches of one int8 eval batch (the main path).
     k2 = {k: int8["shapes"]["eval_transformer_1024"][k] + int8["shapes"]["eval_resnet_256"][k]
           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
-                    "cudnn_bf16_ms")}
+                    "cudnn_bf16_ms", "library_ms", "library_k2_ms", "library_k2_device_ms",
+                    "library_launches", "library_failed_launches")}
     paths = {**int8["shapes"], **int8_train["shapes"]}
     k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
@@ -2154,17 +2940,21 @@ def main(argv=None) -> int:
         "library_ms": gram["library_ms"],
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
                         "count, its counter zeroed just before it; eval, train_classifier, "
-                        "stylize_int8, eval_int8 and int8_train_classifier compute no Gram "
-                        "and must count 0; the int8_train runs 2 a step (relu1_2, relu2_2) "
+                        "stylize_int8, eval_int8, int8_train_classifier, "
+                        "train_artist_classifier and serve (every request of phase serve) "
+                        "compute no Gram and must count 0; the int8_train runs 2 a step "
+                        "(relu1_2, relu2_2) "
                         "and 4 for the targets, their bf16 baseline 4 a step; "
                         "train_cli is the training CLI from directories, train_stream "
                         "train() over content_file_stream",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
-                     f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16",
+                     f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16, int8_train_taps_bf16 "
+                     "over relu1_2 and relu2_2 in bf16 (the taps of an int8 training step)",
         "train_taps": gram["train_taps"],
         "train_taps_bf16": gram["train_taps_bf16"],
+        "int8_train_taps_bf16": gram["int8_train_taps_bf16"],
         "peaks": variant,
     }, {
         "name": "qconv_i8",
@@ -2172,7 +2962,8 @@ def main(argv=None) -> int:
         "source": QCONV_SOURCE,
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
-        "launches_by_path": {**int8["launches"], **int8_train["launches"]},
+        "launches_by_path": {**int8["launches"], **int8_train["launches"],
+                             **serve["launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
@@ -2181,7 +2972,11 @@ def main(argv=None) -> int:
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": "operations" if k2["ops_ms"] >= k2["bytes_ms"] else "bytes",
-        "library_ms": None,
+        "library_ms": k2["library_ms"],
+        "library_launches": k2["library_launches"],
+        "library_failed_launches": k2["library_failed_launches"],
+        "library_k2_ms": k2["library_k2_ms"],
+        "library_k2_device_ms": k2["library_k2_device_ms"],
         "cudnn_bf16_ms": k2["cudnn_bf16_ms"],
         "launches_are": "launches: the int8 eval main path (16 images, 4 batches of 68: 16 "
                         "TransformerNet and 52 ResNet-50 convs), counter zeroed just before; "
@@ -2190,13 +2985,19 @@ def main(argv=None) -> int:
                         "int8_train (224x224 B=4 bf16, each int8 conv forward and dgrad a "
                         "step, the targets' forward once): quantize_loss 3 epochs x 4 steps "
                         "x 12 + 6, qat_trunk x 38 + 6, qat_all 1 epoch x 44 + 6, "
-                        "classifier 4 steps x 104, cli the --quantize_loss --qat CLI",
+                        "classifier 4 steps x 104, cli the --quantize_loss --qat CLI; "
+                        "serve_int8_stylize and serve_classify phase serve's int8 stylize and "
+                        "classify requests, each path alone over HTTP (16 a stylize batch, 52 "
+                        "a classify batch)",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
                      "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
                      "run inside it; ms warm by CUDA events, device_ms "
-                     "cold-L2 by the profiler; library_ms null: no PyTorch call computes an "
-                     "int8 conv (torch._int_mm only its 1x1 shapes, in the qconv lines); "
+                     "cold-L2 by the profiler; no PyTorch call computes an int8 conv: "
+                     "library_ms is torch._int_mm summed over the batch's 1x1 stride-1 "
+                     "launches alone (library_launches of them; library_failed_launches where "
+                     "it refused the shape), library_k2_ms and library_k2_device_ms K2's "
+                     "sums over the same launches; "
                      "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference; "
                      "paths holds each path's sums (train_*: one step of the int8 training "
                      "nets, forward and dgrad launches apart), dgrad the sums over the "
