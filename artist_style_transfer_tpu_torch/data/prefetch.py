@@ -14,6 +14,12 @@ buffer stays referenced until its copy has completed.
 
 On the CPU it is a plain pass-through with the same bounded look-ahead and
 no pinning.
+
+Under a mesh (``sharding=``, a :class:`parallel.mesh.Mesh`) every process's stream
+yields its host-local slice of each global batch, as a multi-process JAX mesh's
+does, and each slice goes to that rank's device: the mesh's, which must be the
+``device`` asked for. Where JAX assembles the slices into one global array, here
+each rank's step takes its slice as it is (``train.loop``'s streamed step).
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from artist_style_transfer_tpu_torch.utils.device import resolve_device
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh
+from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 
 
 def device_prefetch(
@@ -38,16 +45,17 @@ def device_prefetch(
     ``buffer_size`` copies in flight.
 
     Checks run at call time, not at the first ``next()``: ``buffer_size < 1``
-    would yield nothing (silent data loss, not "no prefetch") and raises; a
-    ``sharding`` raises until the port's parallel slice.
+    would yield nothing (silent data loss, not "no prefetch") and raises, and so
+    does a ``sharding`` mesh whose rank lives on another device than ``device``.
     """
     if buffer_size < 1:
         raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding (a batch split over a device mesh) comes with the port's parallel slice "
-            "(ROADMAP Queue 1 item 12)")
     dev = resolve_device(device)
+    if sharding is not None:
+        if not isinstance(sharding, Mesh):
+            raise TypeError(f"sharding must be a parallel.mesh.Mesh, got {type(sharding).__name__}")
+        if not same_device(sharding.device, dev):
+            raise ValueError(f"this rank's device is {sharding.device}, not {dev}")
     stage = _CudaStage(dev) if dev.type == "cuda" else _HostStage(dev)
     return _prefetch(iter(batches), buffer_size, stage)
 

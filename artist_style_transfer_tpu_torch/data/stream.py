@@ -10,7 +10,8 @@ exactly the JAX stream's batches for the same arguments:
 - the same file list, capped by a ``np.random.default_rng([seed])`` permutation,
   and the same per-epoch order, ``default_rng([seed, epoch])``;
 - each of ``num`` processes decodes its ``batch_size / num`` slice of every
-  global batch (``_procs=(num, index)``, by default ``(1, 0)``);
+  global batch (``_procs=(num, index)``, by default the process group's world
+  size and rank, ``(1, 0)`` without one);
 - a ragged final batch is kept when the processes divide it, else dropped
   with a warning;
 - a file no decoder reads raises: processes pick rows from the shared list by
@@ -105,8 +106,10 @@ def content_file_stream(
     """A ``train(content_stream=...)`` callable over the images of ``content_dir``.
 
     ``batch_size`` is the global batch; each of the ``_procs[0]`` processes yields
-    its ``batch_size / num`` slice (``num`` must divide it). ``content_data_size``
-    caps the corpus after a seeded shuffle, so the subset is the same every epoch.
+    its ``batch_size / num`` slice (``num`` must divide it); ``_procs`` defaults to
+    the ``torch.distributed`` world size and rank (JAX ``process_count`` and
+    ``process_index``). ``content_data_size`` caps the corpus after a seeded shuffle,
+    so the subset is the same every epoch.
     """
     files = sorted(os.listdir(content_dir))
     if content_data_size is not None:
@@ -115,7 +118,11 @@ def content_file_stream(
     paths = [os.path.join(content_dir, f) for f in files]
     if not paths:
         raise ValueError(f"no files in {content_dir!r}")
-    nproc, pid = (1, 0) if _procs is None else _procs
+    if _procs is None:
+        import torch.distributed as dist
+
+        _procs = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    nproc, pid = _procs
     if batch_size % nproc:
         raise ValueError(f"batch_size={batch_size} not divisible by {nproc} processes")
     stream = ContentFileStream(paths, batch_size, rescale_height, rescale_width, seed, nproc, pid)

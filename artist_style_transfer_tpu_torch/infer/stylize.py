@@ -3,8 +3,9 @@ inference.py:104-125).
 
 Takes NHWC BGR [0,255] images (uint8 or float32) and returns the stylized
 batch, clipped to uint8 by default; :func:`stylize_int8` runs the quantized
-net (int8 interior convs on kernel K2). The row-sharded stylize paths belong
-to the parallel slice (ROADMAP Queue 1 item 12).
+net (int8 interior convs on kernel K2). :func:`stylize_spatial` and
+:func:`stylize_spatial_int8` stylize one image with its rows spread over a mesh's
+ranks (:mod:`parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import torch
 
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
 from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
-from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, all_rows
+from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 
 
 def stylize(
@@ -68,6 +71,77 @@ def stylize_int8(
         if clip:
             out = out.float().clamp(0.0, 255.0).to(torch.uint8)
     return out
+
+
+def _spatial(net, image_bgr_255, mesh: Mesh, device, run) -> torch.Tensor:
+    """The shared body of the two row-sharded entry points: this rank's band of the
+    input rows through ``run(x_band, bands) -> (y_band, out_bands)``, then the whole
+    output gathered on every rank."""
+    data_parallel(mesh)
+    dev = resolve_device(device)
+    for name, where in (("model", module_device(net)), ("mesh", mesh.device)):
+        if not same_device(where, dev):
+            raise ValueError(f"{name} is on {where}, not on {dev}")
+    x = torch.as_tensor(image_bgr_255)
+    squeeze = x.dim() == 3
+    x = x[None] if squeeze else x
+    if x.shape[1] % mesh.size:
+        raise ValueError(f"image height {x.shape[1]} does not divide over the {mesh.size}-rank "
+                         "mesh")
+    bands = RowBands.split(mesh, x.shape[1])
+    a, b = bands.bounds()
+    with torch.inference_mode():
+        y, out_bands = run(x[:, a:b].to(dev), bands)
+        out = all_rows(y, out_bands, dim=1)
+    return out[0] if squeeze else out
+
+
+def stylize_spatial(
+    model: TransformerNet,
+    image_bgr_255,
+    mesh: Mesh,
+    clip: bool = True,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Stylize one image with its H rows spread over ``mesh``'s ranks (JAX
+    ``stylize_spatial``, which shards H over the 'data' axis).
+
+    Every rank calls it with the same image (HWC or NHWC BGR [0,255]) and computes
+    its band of rows: before each conv it fetches the halo rows the conv reads from
+    its neighbours, and each instance norm takes the whole image's statistics
+    (:mod:`parallel.spatial`), so the activations a rank holds are about 1/n of the
+    image's plus halos. Returns the whole output on every rank, the input's rank,
+    uint8 if ``clip``. The mesh's size must divide H, as JAX's sharding needs; the
+    bands at half and quarter resolution may be uneven. Equal to :func:`stylize` up
+    to the order of the sums.
+    """
+    def run(x, bands):
+        y, out_bands = model.forward_rows(x.float(), bands)
+        return (y.clamp(0.0, 255.0).to(torch.uint8) if clip else y), out_bands
+
+    return _spatial(model, image_bgr_255, mesh, device, run)
+
+
+def stylize_spatial_int8(
+    qmodel: QuantizedTransformerNet,
+    image_bgr_255,
+    mesh: Mesh,
+    clip: bool = True,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Int8 :func:`stylize_spatial` (JAX ``stylize_spatial_int8``): the quantized net
+    with bf16 accumulators, as :func:`stylize_int8`, on a band of rows a rank.
+
+    The static activation scales make every rank quantize its rows, halo rows
+    included, to the single-device codes; the instance-norm statistics are the
+    whole image's. Returns NHWC (or HWC) BGR on every rank, uint8 if ``clip`` else
+    bf16; equal to :func:`stylize_int8` up to the order of the IN sums.
+    """
+    def run(x, bands):
+        y, out_bands = qmodel.forward_rows(x, bands, accum=torch.bfloat16)
+        return (y.float().clamp(0.0, 255.0).to(torch.uint8) if clip else y), out_bands
+
+    return _spatial(qmodel, image_bgr_255, mesh, device, run)
 
 
 def stylize_batched(

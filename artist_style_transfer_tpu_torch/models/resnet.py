@@ -140,7 +140,8 @@ def _forward(model: ResNet50Classifier, x_nhwc: torch.Tensor, bn, return_feature
 
 
 def classifier_apply_train(
-    model: ResNet50Classifier, x_nhwc: torch.Tensor, return_features: bool = False
+    model: ResNet50Classifier, x_nhwc: torch.Tensor, return_features: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict[str, tuple[torch.Tensor, torch.Tensor]]]:
     """Train-mode forward (JAX ``classifier_apply_train``): every BN normalizes by the
     batch statistics (:func:`ops.norm.batch_norm_train`).
@@ -149,14 +150,15 @@ def classifier_apply_train(
     ``model`` (``"0.4.1.bn2"``, ``"1.2"``: its state-dict prefix) to its (batch mean,
     unbiased batch variance), f32, for :func:`update_running_stats`. Differentiable
     in the parameters the caller lets require grad; the running statistics are
-    neither read nor written.
+    neither read nor written. With ``mesh`` (its ranks holding one batch between them)
+    every BN's statistics are the whole batch's (``batch_norm_train(mesh=)``).
     """
     names = {m: n for n, m in model.named_modules()
              if isinstance(m, nn.modules.batchnorm._BatchNorm)}
     stats: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def bn(h: torch.Tensor, m: nn.Module) -> torch.Tensor:
-        y, mean, var = batch_norm_train(h, m.weight, m.bias, m.eps)
+        y, mean, var = batch_norm_train(h, m.weight, m.bias, m.eps, mesh=mesh)
         stats[names[m]] = (mean, var)
         return y
 

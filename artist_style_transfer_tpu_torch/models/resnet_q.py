@@ -67,8 +67,8 @@ class FrozenInt8Conv(nn.Module):
         self.register_buffer("b", _copy(p["b"], torch.float32))
         self.stride, self.padding = stride, padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_frozen_int8(x, self.wq, self.sw, self.b, self.padding, self.stride)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        return conv2d_frozen_int8(x, self.wq, self.sw, self.b, self.padding, self.stride, mesh)
 
 
 class QuantizedBottleneck(nn.Module):
@@ -79,11 +79,11 @@ class QuantizedBottleneck(nn.Module):
         self.conv3 = FrozenInt8Conv(p["conv3"], 1, 0)
         self.down = FrozenInt8Conv(p["down"], stride, 0) if "down" in p else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.conv1(x))
-        h = torch.relu(self.conv2(h))
-        h = self.conv3(h)
-        identity = x if self.down is None else self.down(x)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        h = torch.relu(self.conv1(x, mesh))
+        h = torch.relu(self.conv2(h, mesh))
+        h = self.conv3(h, mesh)
+        identity = x if self.down is None else self.down(x, mesh)
         return torch.relu(h + identity)
 
 
@@ -119,16 +119,18 @@ class QuantizedClassifier(nn.Module):
     def _linear(self, v: torch.Tensor, layer: str) -> torch.Tensor:
         return F.linear(v, getattr(self, f"{layer}_w")) + getattr(self, f"{layer}_b")
 
-    def forward(self, x_nhwc: torch.Tensor, return_features: bool = False) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, return_features: bool = False,
+                mesh=None) -> torch.Tensor:
         """bf16 logits (N, num_classes), or with ``return_features`` the 512-wide
-        post-ReLU fc1 output."""
+        post-ReLU fc1 output. With ``mesh`` the int8 convs' dynamic scales are the
+        whole batch's over its ranks."""
         x = x_nhwc.to(_REAL_DTYPE).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         h = F.conv2d(x, self.stem_w, stride=2, padding=3)
         x = torch.relu(h.float() + self.stem_b.view(1, -1, 1, 1)).to(_REAL_DTYPE)
         x = max_pool2d(x, 3, 2, padding=1)
         for stage in self.stages:
             for block in stage:
-                x = block(x)
+                x = block(x, mesh)
         feats = torch.cat([max_pool_global(x), avg_pool_global(x)], dim=1)
         h = torch.relu(self._linear(self._bn1d(feats, "bn1"), "fc1"))
         if return_features:
@@ -172,6 +174,6 @@ def classifier_is_quantized(model) -> bool:
 
 
 def classifier_apply_int8(qmodel: QuantizedClassifier, x_nhwc: torch.Tensor,
-                          return_features: bool = False) -> torch.Tensor:
+                          return_features: bool = False, mesh=None) -> torch.Tensor:
     """JAX ``classifier_apply_int8``: logits (or features) of the quantized classifier."""
-    return qmodel(x_nhwc, return_features=return_features)
+    return qmodel(x_nhwc, return_features=return_features, mesh=mesh)

@@ -19,6 +19,11 @@ norm before it through ``instance_norm_act`` in every precision mode. The JAX
 here both forms are one autograd function, whose recomputed mask equals
 relu's own in f32, so the fold costs nothing in parity. The network runs in
 ``channels_last`` and is differentiable.
+
+``forward_rows`` runs the same net (inference only) on one band of an image's rows
+while the other ranks of a mesh run the others (:mod:`parallel.spatial`: halo rows
+fetched before each conv, instance-norm statistics over the whole image);
+``forward`` is untouched by it.
 """
 
 from __future__ import annotations
@@ -26,8 +31,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from artist_style_transfer_tpu_torch.ops.conv import conv2d_reflect, conv_transpose2d
-from artist_style_transfer_tpu_torch.ops.norm import instance_norm_act
+from artist_style_transfer_tpu_torch.ops.norm import INSTANCE_NORM_EPS, instance_norm_act
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    conv_rows,
+    conv_transpose_rows,
+    instance_norm_rows,
+)
 
 # (kernel, stride, in_ch, out_ch) of the four encoder convs (cnn.py:15-24).
 ENCODER_SPEC = ((9, 1, 3, 32), (3, 2, 32, 64), (3, 2, 64, 128), (1, 1, 128, 128))
@@ -51,6 +64,9 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         return instance_norm_act(x, self.weight, self.bias, relu)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowBands, relu: bool = False) -> torch.Tensor:
+        return instance_norm_rows(x, rows, self.weight, self.bias, relu, INSTANCE_NORM_EPS)
+
 
 class ConvLayer(nn.Module):
     """Reflect-pad conv, then instance norm unless ``norm=False`` (cnn.py:52-79)."""
@@ -65,6 +81,18 @@ class ConvLayer(nn.Module):
                            stride=self.conv_layer.stride[0])
         return x if self.norm_layer is None else self.norm_layer(x, relu)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowBands,
+                     relu: bool = False) -> tuple[torch.Tensor, RowBands]:
+        w, b, s = self.conv_layer.weight, self.conv_layer.bias, self.conv_layer.stride[0]
+        k = w.shape[-1]
+        p = k // 2
+
+        def conv(t):  # H arrives reflected; W is padded here
+            return F.conv2d(F.pad(t, (p, p, 0, 0), mode="reflect") if p else t, w, b, stride=s)
+
+        x, rows = conv_rows(x, rows, k, s, p, conv, w.shape[0])
+        return (x if self.norm_layer is None else self.norm_layer.forward_rows(x, rows, relu)), rows
+
 
 class ResidualLayer(nn.Module):
     def __init__(self, c: int = RES_CHANNELS):
@@ -74,6 +102,11 @@ class ResidualLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv2(self.conv1(x, relu=True)) + x
+
+    def forward_rows(self, x: torch.Tensor, rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        h, rows_h = self.conv1.forward_rows(x, rows, relu=True)
+        y, rows_y = self.conv2.forward_rows(h, rows_h)
+        return y + x, rows_y
 
 
 class DeconvLayer(nn.Module):
@@ -89,6 +122,19 @@ class DeconvLayer(nn.Module):
         x = conv_transpose2d(x, ct.weight, ct.bias, stride=ct.stride[0],
                              padding=ct.padding[0], output_padding=ct.output_padding[0])
         return self.norm_layer(x, relu)
+
+    def forward_rows(self, x: torch.Tensor, rows: RowBands,
+                     relu: bool = False) -> tuple[torch.Tensor, RowBands]:
+        ct = self.conv_transpose
+        k, s, p, op = ct.kernel_size[0], ct.stride[0], ct.padding[0], ct.output_padding[0]
+
+        def conv(t):
+            return conv_transpose2d(t, ct.weight, ct.bias, stride=s, padding=p, output_padding=op)
+
+        # a transpose conv is a conv over the input dilated by s, padded (k-1-p, k-1-p+op)
+        x, rows = conv_transpose_rows(x, rows, k, s, k - 1 - p, k - 1 - p + op, conv,
+                                      ct.weight.shape[1])
+        return self.norm_layer.forward_rows(x, rows, relu), rows
 
 
 class TransformerNet(nn.Module):
@@ -123,6 +169,21 @@ class TransformerNet(nn.Module):
         for i in range(0, len(DECODER_SPEC) * 2, 2):
             x = self.DeconvBlock[i](x, relu=True)
         return self.DeconvBlock[-1](x).permute(0, 2, 3, 1)
+
+    def forward_rows(self, x_nhwc: torch.Tensor,
+                     rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows (``rows`` says whose band is
+        which) of NHWC BGR [0,255] images: this rank's band of the output, and the
+        output's bands. Every rank of ``rows.mesh`` runs it at once."""
+        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        for i in range(0, len(ENCODER_SPEC) * 2, 2):
+            x, rows = self.ConvBlock[i].forward_rows(x, rows, relu=True)
+        for block in self.ResidualBlock:
+            x, rows = block.forward_rows(x, rows)
+        for i in range(0, len(DECODER_SPEC) * 2, 2):
+            x, rows = self.DeconvBlock[i].forward_rows(x, rows, relu=True)
+        x, rows = self.DeconvBlock[-1].forward_rows(x, rows)
+        return x.permute(0, 2, 3, 1), rows
 
 
 def init_transformer(

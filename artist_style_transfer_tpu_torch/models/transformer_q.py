@@ -22,6 +22,14 @@ conv form (``w.flip(2, 3).transpose(0, 1)``), which JAX stores as flipped
 HWIO; the per-out-channel absmax runs over the same values, so the codes are
 JAX's. JAX's ``_quant_act`` and ``_quant_w`` are the quantizers of
 :mod:`ops.qconv` (``quant_i8``, ``quant_weight``), which compute the same.
+
+``forward_rows`` runs the quantized net on one band of an image's rows while the
+other ranks of a mesh run the others (:mod:`parallel.spatial`): the real-unit
+halo rows are fetched before each conv and quantized with the same static scale,
+so every rank's int8 codes are the single-device codes of its rows; a reflect
+conv runs on K2 with its W padding done before the quantize and no H padding, a
+transpose conv on its band plus halo with the single-device pads, cropped; the
+instance-norm statistics are the whole image's. ``forward`` is untouched by it.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from artist_style_transfer_tpu_torch.models.transformer import (
 from artist_style_transfer_tpu_torch.ops.norm import INSTANCE_NORM_EPS
 from artist_style_transfer_tpu_torch.ops.pad import reflect_pad_hw
 from artist_style_transfer_tpu_torch.ops.qconv import conv_i8, quant_i8, quant_weight
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    conv_rows,
+    conv_transpose_rows,
+    row_mean,
+)
 
 _REAL_DTYPE = torch.bfloat16  # the real-unit stream between quantized convs
 _ACCUMS = (torch.int32, torch.bfloat16)
@@ -62,13 +76,19 @@ def _buffer(t, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _in_act(y_acc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-            relu: bool) -> torch.Tensor:
+            relu: bool, rows: RowBands | None = None) -> torch.Tensor:
     """InstanceNorm(+ReLU) straight on the conv accumulator (int32 or bf16), with f32
     one-pass statistics; the input's per-channel scale cancels, so the result is
-    in real units. Returns bf16 (JAX ``_in_act``)."""
+    in real units. Returns bf16 (JAX ``_in_act``). With ``rows``, ``y_acc`` is this
+    rank's band and the statistics are the whole image's, in one all-reduce."""
     x32 = y_acc.float()
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    m2 = x32.square().mean(dim=(2, 3), keepdim=True)
+    if rows is None:
+        mean = x32.mean(dim=(2, 3), keepdim=True)
+        m2 = x32.square().mean(dim=(2, 3), keepdim=True)
+    else:
+        c = x32.shape[1]
+        both = row_mean(torch.cat([x32, x32.square()], dim=1), rows)
+        mean, m2 = both[:, :c], both[:, c:]
     var = (m2 - mean.square()).clamp_min(0.0)
     y = ((x32 - mean) * torch.rsqrt(var + INSTANCE_NORM_EPS)) * _channels(gamma) + _channels(beta)
     if relu:
@@ -76,14 +96,26 @@ def _in_act(y_acc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(_REAL_DTYPE)
 
 
-def _in_relu_bf16(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def _in_relu_bf16(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  rows: RowBands | None = None) -> torch.Tensor:
     """One-pass f32-statistics IN + ReLU on a real-unit activation -> bf16."""
-    return _in_act(h, gamma.float(), beta.float(), relu=True)
+    return _in_act(h, gamma.float(), beta.float(), relu=True, rows=rows)
 
 
 def _reflect_conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 reflect-pad conv, then the bias added in bf16, as JAX adds it after the conv."""
     return F.conv2d(reflect_pad_hw(x, w.shape[-1] // 2), w) + _channels(b)
+
+
+def _reflect_conv_bf16_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+    """:func:`_reflect_conv_bf16` over a band of rows."""
+    p = w.shape[-1] // 2
+
+    def conv(t):  # H arrives reflected; W is padded here
+        return F.conv2d(F.pad(t, (p, p, 0, 0), mode="reflect"), w) + _channels(b)
+
+    return conv_rows(x, rows, w.shape[-1], 1, p, conv, w.shape[0])
 
 
 class QuantConv(nn.Module):
@@ -103,6 +135,33 @@ class QuantConv(nn.Module):
         y = conv_i8(quant_i8(x, self.sin), self.wq, self.stride, self.padding,
                     self.dilation, self.pad_mode, out=accum)
         return _in_act(y, self.gamma, self.beta, relu)
+
+    def conv_rows(self, x: torch.Tensor, rows: RowBands,
+                  accum: torch.dtype) -> tuple[torch.Tensor, RowBands]:
+        """The int8 conv alone (no instance norm) on this rank's band of rows: this
+        rank's band of the accumulator, and the accumulator's bands."""
+        k, cout = self.wq.shape[2], self.wq.shape[0]
+        lo, hi = self.padding
+        if self.pad_mode == "reflect":
+            def conv(t):  # H arrives reflected; W is padded before the quantize
+                if lo or hi:  # F.pad gives NCHW; K2 reads NHWC
+                    t = F.pad(t, (lo, hi, 0, 0), mode="reflect").contiguous(
+                        memory_format=torch.channels_last)
+                return conv_i8(quant_i8(t, self.sin), self.wq, self.stride, 0, 1, out=accum)
+
+            y, rows = conv_rows(x, rows, k, self.stride, lo, conv, cout, accum)
+        else:
+            def conv(t):
+                return conv_i8(quant_i8(t, self.sin), self.wq, self.stride, (lo, hi),
+                               self.dilation, out=accum)
+
+            y, rows = conv_transpose_rows(x, rows, k, self.dilation, lo, hi, conv, cout, accum)
+        return y, rows
+
+    def forward_rows(self, x: torch.Tensor, rows: RowBands, accum: torch.dtype,
+                     relu: bool) -> tuple[torch.Tensor, RowBands]:
+        y, rows = self.conv_rows(x, rows, accum)
+        return _in_act(y, self.gamma, self.beta, relu, rows), rows
 
 
 class QuantizedTransformerNet(nn.Module):
@@ -155,6 +214,27 @@ class QuantizedTransformerNet(nn.Module):
         for layer in self.decoder:
             xr = layer(xr, accum, relu=True)
         return _reflect_conv_bf16(xr, self.out_w, self.out_b).permute(0, 2, 3, 1)
+
+    def forward_rows(self, x_nhwc: torch.Tensor, rows: RowBands,
+                     accum: torch.dtype = torch.int32) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows (``rows`` says whose band is
+        which): this rank's band of the output, and the output's bands. Every rank of
+        ``rows.mesh`` runs it at once."""
+        if accum not in _ACCUMS:
+            raise ValueError(f"accum must be torch.int32 or torch.bfloat16, got {accum}")
+        x = x_nhwc.to(_REAL_DTYPE).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h, rows = _reflect_conv_bf16_rows(x, self.stem_w, self.stem_b, rows)
+        xr = _in_relu_bf16(h, self.stem_gamma, self.stem_beta, rows)
+        for layer in self.encoder:
+            xr, rows = layer.forward_rows(xr, rows, accum, relu=True)
+        for block in self.residual:
+            h, rows_h = block["conv1"].forward_rows(xr, rows, accum, relu=True)
+            y, rows = block["conv2"].forward_rows(h, rows_h, accum, relu=False)
+            xr = y + xr
+        for layer in self.decoder:
+            xr, rows = layer.forward_rows(xr, rows, accum, relu=True)
+        y, rows = _reflect_conv_bf16_rows(xr, self.out_w, self.out_b, rows)
+        return y.permute(0, 2, 3, 1), rows
 
 
 def _encoder_layers(model: TransformerNet) -> list[nn.Module]:

@@ -40,28 +40,30 @@ from artist_style_transfer_tpu_torch.ops.qconv import conv2d_qat_int8
 QAT_LAYERS = ("trunk", "all")
 
 
-def _qconv_in(layer: ConvLayer, x: torch.Tensor, k: int, stride: int, relu: bool) -> torch.Tensor:
+def _qconv_in(layer: ConvLayer, x: torch.Tensor, k: int, stride: int, relu: bool,
+              mesh) -> torch.Tensor:
     """Reflect-pad -> int8 QAT conv -> IN (+ReLU) (reference ConvLayer)."""
     xp = F.pad(x, (k // 2,) * 4, mode="reflect") if k > 1 else x
     conv = layer.conv_layer
-    y = conv2d_qat_int8(xp, conv.weight, conv.bias, stride, 0, 1)
+    y = conv2d_qat_int8(xp, conv.weight, conv.bias, stride, 0, 1, mesh)
     return layer.norm_layer(y, relu)
 
 
 def _qdeconv_in(layer: DeconvLayer, x: torch.Tensor, k: int, stride: int,
-                output_padding: int) -> torch.Tensor:
+                output_padding: int, mesh) -> torch.Tensor:
     """ConvTranspose2d as an lhs-dilated int8 QAT conv -> IN + ReLU."""
     lo = k - 1 - k // 2
     ct = layer.conv_transpose
     w = ct.weight.flip(2, 3).transpose(0, 1)  # (I, O, k, k) -> the conv form, OIHW
-    y = conv2d_qat_int8(x, w, ct.bias, 1, (lo, lo + output_padding), stride)
+    y = conv2d_qat_int8(x, w, ct.bias, 1, (lo, lo + output_padding), stride, mesh)
     return layer.norm_layer(y, True)
 
 
 def transformer_apply_qat(model: nn.Module, x_nhwc: torch.Tensor,
-                          layers: str = "trunk") -> torch.Tensor:
+                          layers: str = "trunk", mesh=None) -> torch.Tensor:
     """QAT forward of ``model`` (a :class:`TransformerNet` or its :class:`QATForward`):
-    NHWC BGR [0,255] -> NHWC BGR, unbounded, as ``TransformerNet.forward``."""
+    NHWC BGR [0,255] -> NHWC BGR, unbounded, as ``TransformerNet.forward``. With
+    ``mesh`` the int8 convs' dynamic scales are the whole batch's over its ranks."""
     if layers not in QAT_LAYERS:
         raise ValueError(f"layers must be one of {QAT_LAYERS}, got {layers!r}")
     trunk_only = layers == "trunk"
@@ -72,15 +74,15 @@ def transformer_apply_qat(model: nn.Module, x_nhwc: torch.Tensor,
         if trunk_only and cout < 128:
             x = enc[2 * i](x, relu=True)
         else:
-            x = _qconv_in(enc[2 * i], x, k, s, relu=True)
+            x = _qconv_in(enc[2 * i], x, k, s, relu=True, mesh=mesh)
     for block in model.ResidualBlock:
-        h = _qconv_in(block.conv1, x, 3, 1, relu=True)
-        x = _qconv_in(block.conv2, h, 3, 1, relu=False) + x
+        h = _qconv_in(block.conv1, x, 3, 1, relu=True, mesh=mesh)
+        x = _qconv_in(block.conv2, h, 3, 1, relu=False, mesh=mesh) + x
     for i, (k, s, op, _, cout) in enumerate(DECODER_SPEC):
         if trunk_only and cout < 128:
             x = dec[2 * i](x, relu=True)
         else:
-            x = _qdeconv_in(dec[2 * i], x, k, s, op)
+            x = _qdeconv_in(dec[2 * i], x, k, s, op, mesh)
     return dec[-1](x).permute(0, 2, 3, 1)
 
 
@@ -97,5 +99,5 @@ class QATForward(nn.Module):
             self.add_module(name, child)
         self.layers = layers
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        return transformer_apply_qat(self, x_nhwc, self.layers)
+    def forward(self, x_nhwc: torch.Tensor, mesh=None) -> torch.Tensor:
+        return transformer_apply_qat(self, x_nhwc, self.layers, mesh)

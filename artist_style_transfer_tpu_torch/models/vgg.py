@@ -48,9 +48,10 @@ class VGG16Features(nn.Module):
         self.to(memory_format=torch.channels_last)
 
     def forward(
-        self, x_nhwc: torch.Tensor, just_content: bool = False
+        self, x_nhwc: torch.Tensor, just_content: bool = False, mesh=None
     ) -> dict[str, torch.Tensor] | torch.Tensor:
-        """NHWC preprocessed input -> {tap: NHWC activation} (or relu2_2 alone)."""
+        """NHWC preprocessed input -> {tap: NHWC activation} (or relu2_2 alone). With
+        ``mesh`` the int8 convs' dynamic scales are the whole batch's over its ranks."""
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         taps: dict[str, torch.Tensor] = {}
         for idx, _, _ in VGG_CONVS:
@@ -111,9 +112,10 @@ class QuantizedVGG16Features(nn.Module):
             self.register_buffer(f"b{i}", p["b"].detach().clone())
 
     def forward(
-        self, x_nhwc: torch.Tensor, just_content: bool = False
+        self, x_nhwc: torch.Tensor, just_content: bool = False, mesh=None
     ) -> dict[str, torch.Tensor] | torch.Tensor:
-        """NHWC preprocessed input -> {tap: NHWC activation} (or relu2_2 alone)."""
+        """NHWC preprocessed input -> {tap: NHWC activation} (or relu2_2 alone). With
+        ``mesh`` the int8 convs' dynamic scales are the whole batch's over its ranks."""
         x = x_nhwc.to(self.w0.dtype).permute(0, 3, 1, 2).contiguous(  # conv1_1 stays real
             memory_format=torch.channels_last)
         taps: dict[str, torch.Tensor] = {}
@@ -125,7 +127,7 @@ class QuantizedVGG16Features(nn.Module):
                 x = F.relu(F.conv2d(x, getattr(self, f"w{i}"), b, padding=1))
             else:
                 x = F.relu(conv2d_frozen_int8(x, getattr(self, f"wq{i}"),
-                                              getattr(self, f"sw{i}"), b, 1))
+                                              getattr(self, f"sw{i}"), b, 1, mesh=mesh))
             name = TAP_AFTER.get(idx)
             if name is not None:
                 tap = x.permute(0, 2, 3, 1)

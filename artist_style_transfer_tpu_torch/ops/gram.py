@@ -111,13 +111,14 @@ class GramInt8Function(torch.autograd.Function):
     """The int8 Gram and its STE backward (JAX ``_gram_int8_fwd`` / ``_gram_int8_bwd``)."""
 
     @staticmethod
-    def forward(ctx, features_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, features_nhwc: torch.Tensor, mesh) -> torch.Tensor:
         n, h, w, c = features_nhwc.shape
-        s_f = absmax_scale(features_nhwc)
+        s_f = absmax_scale(features_nhwc, mesh)
         fq = features_nhwc.new_zeros((n, _int_mm_rows(h * w), c), dtype=torch.int8)
         fq[:, : h * w] = quant_i8(features_nhwc, s_f).reshape(n, h * w, c)
         ctx.save_for_backward(fq, s_f)
         ctx.meta = (features_nhwc.shape, features_nhwc.dtype)
+        ctx.mesh = mesh
         fq_t = fq.transpose(1, 2).contiguous()  # (N, C, HW): Fq^T row-major
         acc = int8_products(fq_t, fq_t)
         return acc.float() * (s_f * s_f / float(c * h * w))
@@ -127,13 +128,15 @@ class GramInt8Function(torch.autograd.Function):
         fq, s_f = ctx.saved_tensors
         (n, h, w, c), dtype = ctx.meta
         sym = (dg.float() + dg.float().transpose(1, 2)) * (1.0 / float(c * h * w))
-        s_sym = absmax_scale(sym)
+        s_sym = absmax_scale(sym, ctx.mesh)
         sym_t = quant_i8(sym, s_sym).transpose(1, 2)  # b[n] = symq[n], handed over transposed
         acc = int8_products(fq, sym_t)[:, : h * w]
         df = acc.float() * (s_f * s_sym)
-        return df.reshape(n, h, w, c).to(dtype)
+        return df.reshape(n, h, w, c).to(dtype), None
 
 
-def gram_matrix_int8(features_nhwc: torch.Tensor) -> torch.Tensor:
-    """Normalized Gram (N, C, C) f32 of NHWC features in int8, differentiable (STE)."""
-    return GramInt8Function.apply(features_nhwc)
+def gram_matrix_int8(features_nhwc: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Normalized Gram (N, C, C) f32 of NHWC features in int8, differentiable (STE).
+    With ``mesh`` both dynamic scales are the whole batch's over its ranks
+    (:func:`ops.qconv.absmax_scale`)."""
+    return GramInt8Function.apply(features_nhwc, mesh)

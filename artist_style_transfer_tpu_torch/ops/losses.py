@@ -26,6 +26,7 @@ def style_loss_gram(
     target_grams: dict[str, torch.Tensor],
     use_kernel: str | bool = "auto",
     quantize: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Sum over the four VGG taps of MSE(gram(gen), target) (train_cnn.py:321-325).
 
@@ -38,13 +39,14 @@ def style_loss_gram(
 
     ``quantize`` (the quantized-loss training path) sends the taps with C >= 256,
     relu3_3 and relu4_3, through the int8 Gram (:func:`ops.gram.gram_matrix_int8`),
-    as JAX gates it; the shallow taps keep the Gram kernel.
+    as JAX gates it; the shallow taps keep the Gram kernel. ``mesh`` makes the int8
+    Gram's scales the whole batch's where its ranks hold one batch between them.
     """
     loss = None
     for name in VGG_LAYER_NAMES:
         feats = gen_features[name]
         if quantize and feats.shape[-1] >= 256:
-            g = gram_matrix_int8(feats)
+            g = gram_matrix_int8(feats, mesh)
         else:
             g = gram_matrix(feats, use_kernel=use_kernel)
         term = mse(g, target_grams[name])

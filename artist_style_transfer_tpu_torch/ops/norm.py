@@ -138,11 +138,59 @@ def batch_norm_inference(
     return x * inv.view(shape) + (bias - running_mean * inv).view(shape)
 
 
+class _GlobalBatchNormFunction(torch.autograd.Function):
+    """Train-mode batch norm over a batch split across ``mesh``'s ranks: the statistics
+    are the whole batch's, as GSPMD makes them when it turns JAX's reductions into
+    all-reduces. Forward: the per-channel sums and counts, then the centred squares,
+    each all-reduced; backward: the two per-channel sums the input gradient needs,
+    all-reduced in one call. ``scale`` and ``bias`` get this rank's part of their
+    gradient, which the trainer's gradient all-reduce completes."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float, mesh):
+        acc = _stats_dtype(x)
+        dims = (0,) + tuple(range(2, x.dim()))
+        x32 = x.to(acc)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        s = torch.cat([x32.sum(dims), x32.new_full((1,), x32.numel() / x.shape[1])])
+        mesh.all_reduce_(s)
+        n = s[-1]
+        mean = s[:-1] / n
+        xc = x32 - mean.view(shape)
+        sq = mesh.all_reduce_(xc.square().sum(dims))
+        var = sq / n
+        inv = torch.rsqrt(var + eps)
+        xhat = xc * inv.view(shape)
+        y = (xhat * scale.to(acc).view(shape) + bias.to(acc).view(shape)).to(x.dtype)
+        unbiased = sq / (n - 1).clamp_min(1.0)
+        ctx.save_for_backward(xhat, inv, scale)
+        ctx.mesh, ctx.n, ctx.dtypes = mesh, n, (x.dtype, scale.dtype, bias.dtype)
+        ctx.mark_non_differentiable(mean, unbiased)
+        return y.contiguous(memory_format=_memory_format(x)), mean, unbiased
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, inv, scale = ctx.saved_tensors
+        x_dtype, s_dtype, b_dtype = ctx.dtypes
+        dims = (0,) + tuple(range(2, xhat.dim()))
+        shape = (1, -1) + (1,) * (xhat.dim() - 2)
+        dya = dy.to(xhat.dtype)
+        local = torch.stack([dya.sum(dims), (dya * xhat).sum(dims)])
+        dbeta, dgamma = local[0].clone(), local[1].clone()  # this rank's part
+        g = ctx.mesh.all_reduce_(local) / ctx.n
+        dx = (scale.to(xhat.dtype) * inv).view(shape) * (
+            dya - g[0].view(shape) - xhat * g[1].view(shape))
+        return (dx.to(x_dtype).contiguous(memory_format=_memory_format(dy)),
+                dgamma.to(s_dtype), dbeta.to(b_dtype), None, None)
+
+
 def batch_norm_train(
     x: torch.Tensor,
     scale: torch.Tensor,
     bias: torch.Tensor,
     eps: float = BATCH_NORM_EPS,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode batch norm (JAX ``batch_norm_train``): ``(y, batch_mean,
     batch_var_unbiased)``.
@@ -154,7 +202,14 @@ def batch_norm_train(
     running buffers start at 0 and take momentum 1, so they come back holding the
     batch's statistics, in f32 (f64 for f64 input). Differentiable in ``x``,
     ``scale`` and ``bias``; the statistics carry no gradient.
+
+    With ``mesh`` (a :class:`parallel.mesh.Mesh` whose ranks hold one batch between
+    them) the statistics are the whole batch's (JAX ``ops/norm.py:170-197`` under
+    GSPMD), from one autograd function that all-reduces its sums forward and
+    backward; ``nn.SyncBatchNorm`` needs CUDA, and the port's tests run on the CPU.
     """
+    if mesh is not None:
+        return _GlobalBatchNormFunction.apply(x, scale, bias, eps, mesh)
     mean, var = torch.zeros((2, x.shape[1]), dtype=_stats_dtype(x), device=x.device)
     y = F.batch_norm(x, mean, var, scale, bias, training=True, momentum=1.0, eps=eps)
     return y, mean, var

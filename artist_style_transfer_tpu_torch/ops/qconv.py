@@ -9,7 +9,10 @@ to even):
   (:func:`quant_weight`);
 - activations: per-tensor, ``round(x * (1 / s))`` (:func:`quant_i8`), with a
   static scale (the TransformerNet) or a dynamic one, the absmax of each call
-  (:func:`absmax_scale`, the ResNet-50 classifier).
+  (:func:`absmax_scale`, the ResNet-50 classifier). Where ranks hold one batch
+  between them (data-parallel training, sharded evaluation) the caller passes
+  their ``mesh`` and the absmax is the whole batch's, as GSPMD gives JAX's
+  per-tensor absmax of a batch-sharded array.
 
 :func:`conv_i8` convolves int8 codes into the exact int32 sum and sends a CUDA
 tensor to the hand-written Hopper kernel K2
@@ -40,7 +43,8 @@ out of the C_out contraction), which is quantized with a dynamic scale and
 convolved with the flipped, transposed codes (:func:`_dgrad`). A strided
 forward's dgrad is lhs-dilated by the stride with the pads of
 :func:`_dgrad_pad`; an lhs-dilated forward's dgrad has the dilation as its
-window stride. On CUDA both convs are K2's.
+window stride. On CUDA both convs are K2's. Each takes the caller's ``mesh`` at
+its forward and keeps it for its backward's dynamic scale.
 """
 
 from __future__ import annotations
@@ -62,9 +66,14 @@ class Dequant(NamedTuple):
     dtype: torch.dtype  # torch.float32 or torch.bfloat16
 
 
-def absmax_scale(t: torch.Tensor) -> torch.Tensor:
-    """Per-tensor symmetric int8 scale: absmax / 127 (f32 scalar, never 0)."""
-    return t.float().abs().amax().clamp_min(1e-30) / 127.0
+def absmax_scale(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Per-tensor symmetric int8 scale: absmax / 127 (f32 scalar, never 0). With
+    ``mesh`` (a :class:`parallel.mesh.Mesh` whose ranks each hold a slice of one
+    batch) the absmax is the max over its ranks: the whole batch's."""
+    amax = t.float().abs().amax()
+    if mesh is not None:
+        mesh.all_reduce_(amax, "max")
+    return amax.clamp_min(1e-30) / 127.0
 
 
 def quant_i8(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -222,17 +231,18 @@ def _unit_scales(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _dgrad(dy: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, in_hw: tuple[int, int],
-           stride: int, lo: int, lhs_d: int) -> torch.Tensor:
+           stride: int, lo: int, lhs_d: int, mesh=None) -> torch.Tensor:
     """The STE data gradient of ``conv_i8(quant(x), wq, stride, (lo, _), lhs_d)``
     dequantized by ``sw``: ``dx = conv_i8(quant(dy * sw), flipT(wq)) * s_dy``, as JAX
     ``_q_bwd`` and ``_qat_bwd`` compute it, in ``dy.dtype``.
 
     The high pad is solved per axis; where the two axes' differ (a non-square input),
     the larger one runs and the extra outputs past the input's extent are cut off.
+    ``s_dy`` is the whole batch's over ``mesh``'s ranks (:func:`absmax_scale`).
     """
     k = wq.shape[2]
     dyp = dy.float() * sw.view(1, -1, 1, 1)
-    s_dy = absmax_scale(dyp)
+    s_dy = absmax_scale(dyp, mesh)
     dq = quant_i8(dyp, s_dy).contiguous(memory_format=torch.channels_last)
     w_t = wq.flip(2, 3).transpose(0, 1).contiguous(memory_format=torch.channels_last)
     pads = [_dgrad_pad(i, o, k, stride, lhs_d, lo) for i, o in zip(in_hw, dy.shape[2:])]
@@ -246,10 +256,11 @@ def _dgrad(dy: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, in_hw: tuple[in
 
 class _FrozenInt8Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, sw, b, padding, stride):
-        s_in = absmax_scale(x)
+    def forward(ctx, x, wq, sw, b, padding, stride, mesh):
+        s_in = absmax_scale(x, mesh)
         ctx.save_for_backward(wq, sw)
         ctx.geometry = (tuple(x.shape[2:]), padding, stride)
+        ctx.mesh = mesh
         return conv_i8(quant_i8(x, s_in), wq, stride, padding,
                        out=Dequant(s_in, sw, b, x.dtype))
 
@@ -257,7 +268,8 @@ class _FrozenInt8Conv(torch.autograd.Function):
     def backward(ctx, dy):
         wq, sw = ctx.saved_tensors
         in_hw, padding, stride = ctx.geometry
-        return _dgrad(dy, wq, sw, in_hw, stride, padding, 1), None, None, None, None, None
+        return (_dgrad(dy, wq, sw, in_hw, stride, padding, 1, ctx.mesh),
+                None, None, None, None, None, None)
 
 
 def conv2d_frozen_int8(
@@ -267,6 +279,7 @@ def conv2d_frozen_int8(
     b: torch.Tensor | None,
     padding: int = 1,
     stride: int = 1,
+    mesh=None,
 ) -> torch.Tensor:
     """Zero-padded conv of a FROZEN layer in int8 (JAX ``conv2d_frozen_int8``).
 
@@ -274,8 +287,10 @@ def conv2d_frozen_int8(
     scale, ``acc * (s_in * sw) + b`` in f32, cast to ``x.dtype``. Backward (STE): the
     data gradient as a second int8 conv (:func:`_dgrad`); ``wq``, ``sw`` and ``b``
     get none (the layer is frozen). Neither direction falls back to a real-dtype conv.
+    With ``mesh``, both directions' dynamic scales are the whole batch's over its
+    ranks (:func:`absmax_scale`).
     """
-    return _FrozenInt8Conv.apply(x, wq, sw, b, padding, stride)
+    return _FrozenInt8Conv.apply(x, wq, sw, b, padding, stride, mesh)
 
 
 def _weight_grad(xhat: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, stride: int, lo: int,
@@ -306,12 +321,13 @@ def _weight_grad(xhat: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, stride: 
 
 class _QatInt8Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, stride, lo, hi, lhs_d):
-        s_x = absmax_scale(x)
+    def forward(ctx, x, w, b, stride, lo, hi, lhs_d, mesh):
+        s_x = absmax_scale(x, mesh)
         xq = quant_i8(x, s_x).contiguous(memory_format=torch.channels_last)
         wq, sw = quant_weight(w)
         ctx.save_for_backward(xq, s_x, wq, sw, w)
         ctx.geometry = (stride, lo, hi, lhs_d, b.dtype)
+        ctx.mesh = mesh
         return conv_i8(xq, wq, stride, (lo, hi), lhs_d, out=Dequant(s_x, sw, b.float(), x.dtype))
 
     @staticmethod
@@ -321,8 +337,8 @@ class _QatInt8Conv(torch.autograd.Function):
         xhat = (xq.float() * s_x).to(dy.dtype)
         dw = _weight_grad(xhat, dy, w.to(dy.dtype), stride, lo, hi, lhs_d)
         db = dy.float().sum((0, 2, 3))
-        dx = _dgrad(dy, wq, sw, tuple(xq.shape[2:]), stride, lo, lhs_d)
-        return dx, dw.to(w.dtype), db.to(b_dtype), None, None, None, None
+        dx = _dgrad(dy, wq, sw, tuple(xq.shape[2:]), stride, lo, lhs_d, ctx.mesh)
+        return dx, dw.to(w.dtype), db.to(b_dtype), None, None, None, None, None
 
 
 def conv2d_qat_int8(
@@ -332,6 +348,7 @@ def conv2d_qat_int8(
     stride: int = 1,
     padding: int | tuple[int, int] = 0,
     lhs_dilation: int = 1,
+    mesh=None,
 ) -> torch.Tensor:
     """Int8 conv of a TRAINED layer, quantization-aware (JAX ``conv2d_qat_int8``).
 
@@ -343,7 +360,8 @@ def conv2d_qat_int8(
     gradient over ``xhat = xq * s_x`` against ``dy`` (:func:`_weight_grad`), ``db`` the
     f32 sum of ``dy``, both in their primals' dtypes; ``dx`` the int8 dgrad
     (:func:`_dgrad`), the forward's stride as its lhs dilation and its lhs dilation as
-    its window stride.
+    its window stride. With ``mesh``, ``s_x`` and the dgrad's scale are the whole
+    batch's over its ranks (:func:`absmax_scale`).
     """
     lo, hi = _pads(padding)
-    return _QatInt8Conv.apply(x, w, b, stride, lo, hi, lhs_dilation)
+    return _QatInt8Conv.apply(x, w, b, stride, lo, hi, lhs_dilation, mesh)

@@ -25,8 +25,18 @@ runs them: ``quantize_loss`` quantizes the VGG16 loss extractor once, before
 the targets are built (:func:`models.vgg.quantize_vgg16_loss`), so targets,
 content features and the step share it; ``qat`` and ``quantize_gram`` go to the
 step; a :func:`models.resnet_q.quantize_classifier` module as ``classifier``
-trains 'classifier' mode through the int8 classifier. ``mesh`` raises
-``NotImplementedError`` naming its slice.
+trains 'classifier' mode through the int8 classifier.
+
+``mesh`` (a :class:`parallel.mesh.Mesh`; one process a rank, each calling
+``train`` with the same arguments) trains data-parallel: the replicated state
+(the TransformerNet, the frozen nets, the targets and the corpus) is made rank
+0's (:func:`parallel.distributed.make_global`), each step runs each rank's slice
+of the global batch (:func:`train.loop.make_step_fns`), and only rank 0 writes
+checkpoints, exports, previews, ``style.jpg`` and ``metrics.jsonl`` while the others
+wait at a barrier; ``model_dir`` must be a directory every rank sees (a resume
+reads it on each). A streamed corpus yields each rank's slice of every global
+batch (``content_file_stream`` takes the ranks from the process group). A mesh with
+a 'space' axis larger than 1 raises ``NotImplementedError`` (ROADMAP item 12b).
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ from artist_style_transfer_tpu_torch.models.vgg import (
     load_vgg16,
     quantize_vgg16_loss,
 )
+from artist_style_transfer_tpu_torch.parallel.distributed import make_global
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel
 from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
 from artist_style_transfer_tpu_torch.train.loop import (
     COMPUTE_DTYPES,
@@ -80,14 +92,13 @@ def _vgg_layers(quantize_loss: bool | str | int) -> str | int:
 
 
 def _check_options(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> None:
-    """Refuse, before anything is written, what JAX's ``train()`` refuses, and ``mesh``."""
+    """Refuse, before anything is written, what JAX's ``train()`` refuses, and a mesh
+    with a 'space' axis (ROADMAP item 12b)."""
     if fold_batch not in _FOLD_BATCH:
         raise ValueError(f"fold_batch must be one of {_FOLD_BATCH}, got {fold_batch!r}")
     check_int8_options(qat, quantize_gram)
     first_q = first_quantized_conv(_vgg_layers(quantize_loss)) if quantize_loss else None
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel training) comes with the port's parallel "
-                                  "slice (ROADMAP Queue 1 item 12)")
+    data_parallel(mesh)
     if first_q is not None and first_q < 4 and fold_batch in (True, "vgg"):
         raise NotImplementedError(  # JAX train/loop.py:301-309
             "fold_batch training needs the shallow VGG blocks in bf16: "
@@ -137,7 +148,7 @@ def train(
     content_dir: str = "images/content/",
     archive_dir: str = "images/archive/",
     cache_dir: str = "dicts/",
-    mesh=None,
+    mesh: Mesh | None = None,
     resume: bool = False,
     max_epochs_this_run: int | None = None,
     preview_every: int = 0,
@@ -191,6 +202,10 @@ def train(
     # Before anything is written: an artist outside the classifier's 19 raises.
     artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)
+    if mesh is not None and not same_device(mesh.device, dev):
+        raise ValueError(f"the mesh's device is {mesh.device}, not {dev}")
+    writer = mesh is None or mesh.rank == 0  # the one rank that writes files and prints
+    wordy = wordy and writer
 
     # The reference seeds every RNG (train_cnn.py:147-151).
     np.random.seed(seed)
@@ -201,16 +216,18 @@ def train(
     # The prefix comes before anything writes into the directory: the
     # transfer_/transfer2_ choice keys off its emptiness (train_cnn.py:173-178).
     prefix = None
-    if model_dir:
+    if model_dir and writer:
         if resume:
             prefix = ckpt.resume_prefix(model_dir, artist, style_method, content_weight,
                                         style_weight)
         else:
             prefix = ckpt.save_dir_prefix(model_dir, artist, style_method, content_weight,
                                           style_weight, bump=True)
+    if mesh is not None:  # chosen by rank 0 before it writes anything
+        prefix = mesh.broadcast_object(prefix)
     log = MetricLogger(
         jsonl_path=os.path.join(model_dir, artist, style_method, "metrics.jsonl")
-        if model_dir else None,
+        if model_dir and writer else None,
         stdout=wordy,
     )
 
@@ -264,8 +281,11 @@ def train(
                                   artist_index=artist_index, rng=nprng, use_kernel=use_kernel)
     log.log("style_targets_built", mode=style_method, secs=time.perf_counter() - t0)
     if prefix is not None and targets.style_preview_bgr is not None:
-        _save_style_jpg(os.path.dirname(prefix), targets.style_preview_bgr,
-                        second=os.path.basename(prefix).startswith("transfer2"))
+        _on_rank0(mesh, lambda: _save_style_jpg(
+            os.path.dirname(prefix), targets.style_preview_bgr,
+            second=os.path.basename(prefix).startswith("transfer2")))
+    if mesh is not None:  # every rank trains from rank 0's state (JAX api.py:243-254)
+        make_global(mesh, [model, vgg, classifier, targets.grams, targets.labels, content_data])
 
     # ceil: the ragged final batch is kept (train_cnn.py:170) and counts as a
     # step for the LR schedule too.
@@ -278,7 +298,7 @@ def train(
                         compute_dtype=compute_dtype,
                         classifier=classifier,
                         reference_typo_stats=reference_typo_stats, remat=remat, qat=qat,
-                        quantize_gram=quantize_gram)
+                        quantize_gram=quantize_gram, mesh=mesh)
     content_r22 = None
     if content_data is not None:
         content_r22 = precompute_content_relu2_2(
@@ -318,7 +338,7 @@ def train(
         extra = {}
         if content_stream is not None:
             step_losses, epoch_images, extra["stream_wait_secs"] = _run_stream_epoch(
-                fns, content_stream, epoch, stream_step, dev)
+                fns, content_stream, epoch, stream_step, dev, mesh)
             stream_step += len(step_losses)
         else:
             step_losses = fns.epoch_fn(content_data, content_r22,
@@ -343,28 +363,43 @@ def train(
         log.log("epoch", epoch=epoch + 1, content_loss=float(el[0]), style_loss=float(el[1]),
                 total_loss=float(el[2]), secs=dt, images_per_sec=epoch_images / dt, **extra)
         if prefix is not None and save_every and epoch % save_every == 0:
-            ckpt.save_checkpoint(prefix, epoch, model, opt, sched, losses,
-                                 completed_epochs=epoch + 1)
+            _on_rank0(mesh, lambda: ckpt.save_checkpoint(prefix, epoch, model, opt, sched, losses,
+                                                         completed_epochs=epoch + 1))
         if (prefix is not None and preview_every and epoch % preview_every == 0
                 and content_data is not None):
             # The reference's live preview (train_cnn.py:337-354) as a file, as JAX writes it.
-            _save_preview(os.path.join(os.path.dirname(prefix), f"preview_{epoch}.png"), model,
-                          content_data[:1], targets.style_preview_bgr, dev)
+            _on_rank0(mesh, lambda: _save_preview(
+                os.path.join(os.path.dirname(prefix), f"preview_{epoch}.png"), model,
+                content_data[:1], targets.style_preview_bgr, dev))
 
     log.log("trained", secs=time.perf_counter() - run_start)  # train_cnn.py:387
     if prefix is not None:
-        if end_epoch < num_epochs:
-            # Early stop (time slice): persist the resume point.
-            ckpt.save_checkpoint(prefix, end_epoch - 1, model, opt, sched, losses,
-                                 completed_epochs=end_epoch)
-        else:
-            ckpt.save_checkpoint(prefix, num_epochs, model, opt, sched, losses,
-                                 completed_epochs=num_epochs)
-            ckpt.save_params_npz(f"{prefix}_{num_epochs}.npz", model)
-            if export_pth:
-                ckpt.export_pth(f"{prefix}_{num_epochs}.pth", model)
+        _on_rank0(mesh, lambda: _save_final(prefix, end_epoch, num_epochs, model, opt, sched,
+                                            losses, export_pth))
     log.close()
     return model, losses
+
+
+def _on_rank0(mesh: Mesh | None, write) -> None:
+    """``write()`` on rank 0 (or without a mesh); the other ranks wait until it is done."""
+    if mesh is None or mesh.rank == 0:
+        write()
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _save_final(prefix: str, end_epoch: int, num_epochs: int, model, opt, sched, losses,
+                export_pth: bool) -> None:
+    if end_epoch < num_epochs:
+        # Early stop (time slice): persist the resume point.
+        ckpt.save_checkpoint(prefix, end_epoch - 1, model, opt, sched, losses,
+                             completed_epochs=end_epoch)
+    else:
+        ckpt.save_checkpoint(prefix, num_epochs, model, opt, sched, losses,
+                             completed_epochs=num_epochs)
+        ckpt.save_params_npz(f"{prefix}_{num_epochs}.npz", model)
+        if export_pth:
+            ckpt.export_pth(f"{prefix}_{num_epochs}.pth", model)
 
 
 def train_from_config(config, **overrides):
@@ -372,18 +407,19 @@ def train_from_config(config, **overrides):
 
     ``data_dir`` is the root of the reference's ``images/`` layout
     (dataset.py:12-13): the content under ``<data_dir>/content/``, the Kaggle
-    archive under ``<data_dir>/archive/``. ``mesh_shape`` other than None
-    raises: data-parallel training comes with the port's parallel slice.
+    archive under ``<data_dir>/archive/``. ``mesh_shape`` builds a 'data' mesh of that
+    shape over the process group (:func:`parallel.mesh.make_mesh`), unless a ``mesh``
+    override is given.
     """
+    from artist_style_transfer_tpu_torch.parallel.mesh import make_mesh
     from artist_style_transfer_tpu_torch.utils.config import TrainConfig
 
     if not isinstance(config, TrainConfig):
         raise TypeError(f"train_from_config takes a TrainConfig, got {type(config).__name__}")
-    if config.mesh_shape is not None:
-        raise NotImplementedError(
-            "mesh_shape (data-parallel training) comes with the port's parallel slice "
-            "(ROADMAP Queue 1 item 12)"
-        )
+    mesh = overrides.pop("mesh", None)
+    if mesh is None and config.mesh_shape is not None:
+        mesh = make_mesh(shape=tuple(config.mesh_shape),
+                         device=overrides.get("device", config.device))
     kwargs = dict(
         style_method=config.style_method,
         artist=config.artist,
@@ -406,24 +442,28 @@ def train_from_config(config, **overrides):
         device=config.device,
         content_dir=os.path.join(config.data_dir, "content/"),
         archive_dir=os.path.join(config.data_dir, "archive/"),
+        mesh=mesh,
     )
     kwargs.update(overrides)
     return train(**kwargs)
 
 
-def _run_stream_epoch(fns, content_stream, epoch: int, base_step: int, dev: torch.device):
+def _run_stream_epoch(fns, content_stream, epoch: int, base_step: int, dev: torch.device,
+                      mesh: Mesh | None = None):
     """One epoch of a streamed corpus: host batches through ``device_prefetch`` (two
     copies in flight) into the step, the losses kept on the device until the epoch ends.
 
-    Returns the (steps, 3) losses on the device, the images seen, and the host seconds
-    the loop spent waiting for the next batch (decode, pinning and the copy's launch).
+    Returns the (steps, 3) losses on the device, the images seen (by every rank), and
+    the host seconds the loop spent waiting for the next batch (decode, pinning and the
+    copy's launch). Under a mesh each batch is this rank's slice.
     """
     losses, n_images, wait = [], 0, 0.0
     batches = (np.asarray(b, np.float32) for b in content_stream(epoch))
     t = time.perf_counter()
-    for i, batch in enumerate(device_prefetch(batches, buffer_size=2, device=dev)):
+    for i, batch in enumerate(device_prefetch(batches, buffer_size=2, device=dev,
+                                              sharding=mesh)):
         wait += time.perf_counter() - t
-        n_images += int(batch.shape[0])
+        n_images += int(batch.shape[0]) * (1 if mesh is None else mesh.size)
         losses.append(fns.stream_step_fn(batch, base_step + i))
         t = time.perf_counter()
     if not losses:

@@ -19,7 +19,14 @@ The reference only loads a pretrained ResNet-50 artist classifier
 
 The corpus lives on the device; an epoch is one eager loop of drop-last steps
 over a seeded permutation, its losses kept on the device until the epoch ends.
-``mesh`` (data-parallel training) raises ``NotImplementedError`` naming its slice.
+
+``mesh`` (a :class:`parallel.mesh.Mesh`, one process a rank) trains data-parallel,
+as JAX's GSPMD step over a 'data' mesh: every rank gathers (and augments, from the
+same generator) the same global batch and runs its slice; every BN normalizes by
+the whole batch's statistics and folds them into its running buffers
+(``batch_norm_train(mesh=)``); the gradients, the loss and the accuracy are
+averaged over the ranks in one all-reduce before AdamW, so every rank holds the
+same model. Validation counts each rank's correct answers and all-reduces them.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from artist_style_transfer_tpu_torch.models.resnet import (
     init_classifier,
     update_running_stats,
 )
-from artist_style_transfer_tpu_torch.train.loop import epoch_permutation
-from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device
+from artist_style_transfer_tpu_torch.parallel.distributed import make_global
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
+from artist_style_transfer_tpu_torch.train.loop import epoch_permutation, sync_gradients
+from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 
 # optax.cosine_onecycle_schedule's defaults (the JAX trainer passes only pct_start).
@@ -171,23 +180,32 @@ def _split_train_val(n: int, val_fraction: float, seed: int):
 
 
 def evaluate_classifier(model: ResNet50Classifier, images, labels, batch_size: int = 64,
-                        mesh=None) -> float:
+                        mesh: Mesh | None = None) -> float:
     """Inference-mode accuracy of ``model`` over ``(images, labels)`` (JAX
     ``evaluate_classifier``), in batches on the model's device, the last one ragged.
-    ``images``: NHWC RGB torchvision-normalized (numpy or a tensor)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel evaluation) comes with the port's "
-                                  "parallel slice (ROADMAP Queue 1 item 12)")
+    ``images``: NHWC RGB torchvision-normalized (numpy or a tensor).
+
+    With ``mesh`` each rank classifies its slice of every batch the ranks divide and
+    the correct counts are all-reduced; a batch they do not divide runs whole on
+    every rank and counts once (JAX shards only a divisible batch)."""
+    data_parallel(mesh)
     dev = module_device(model)
     n = len(images)
     labels = torch.as_tensor(np.asarray(labels), device=dev)
     correct = torch.zeros((), dtype=torch.int64, device=dev)
+    sharded = torch.zeros((), dtype=torch.int64, device=dev)
     with torch.inference_mode():
         for start in range(0, n, batch_size):
             xb = torch.as_tensor(images[start: start + batch_size]).to(dev, torch.float32)
-            pred = model(xb).argmax(-1)
-            correct += (pred == labels[start: start + batch_size]).sum()
-    return int(correct) / max(n, 1)
+            yb = labels[start: start + batch_size]
+            if mesh is not None and xb.shape[0] % mesh.size == 0:
+                sharded += (model(shard_batch(xb, mesh)).argmax(-1)
+                            == shard_batch(yb, mesh)).sum()
+            else:
+                correct += (model(xb).argmax(-1) == yb).sum()
+    if mesh is not None:
+        mesh.all_reduce_(sharded)
+    return int(correct + sharded) / max(n, 1)
 
 
 def train_classifier(
@@ -206,7 +224,7 @@ def train_classifier(
     val_fraction: float = 0.2,
     seed: int = 2,
     model: ResNet50Classifier | None = None,
-    mesh=None,
+    mesh: Mesh | None = None,
     wordy: bool = True,
     metrics_path: str | None = None,
     device: str | torch.device | None = None,
@@ -223,12 +241,17 @@ def train_classifier(
     ``best_model`` is the snapshot of highest validation accuracy (ties: the earliest),
     or the final model without a validation split; it comes back frozen, like a
     loaded classifier. ``history`` has per-epoch ``train_loss``, ``train_acc`` and
-    ``val_acc``.
+    ``val_acc``. ``mesh`` trains data-parallel (the module docstring); its size must
+    divide ``batch_size``, and only rank 0 logs.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel training) comes with the port's "
-                                  "parallel slice (ROADMAP Queue 1 item 12)")
+    data_parallel(mesh)
     dev = resolve_device(device)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size ({batch_size}) must divide over the "
+                             f"{mesh.size}-device mesh")
+        if not same_device(mesh.device, dev):
+            raise ValueError(f"the mesh's device is {mesh.device}, not {dev}")
     images = np.asarray(images, np.float32)
     labels = np.asarray(labels, np.int32)
     n = images.shape[0]
@@ -242,8 +265,10 @@ def train_classifier(
         model = init_classifier(torch.Generator().manual_seed(seed), dev, num_classes)
     else:
         model = copy.deepcopy(model).to(dev)
+    make_global(mesh, model)
     opt, sched = make_classifier_optimizer(model, lr, num_epochs * steps_per_epoch,
                                            weight_decay, freeze_body, schedule)
+    trained = [p for p in model.parameters() if p.requires_grad]
 
     corpus = torch.as_tensor(images[train_idx]).to(dev)
     corpus_labels = torch.as_tensor(labels[train_idx], dtype=torch.int64).to(dev)
@@ -251,7 +276,8 @@ def train_classifier(
     aug = (torch.Generator(device=dev).manual_seed(seed + AUGMENT_SEED_OFFSET)
            if augment else None)
 
-    log = MetricLogger(metrics_path, stdout=wordy)
+    writer = mesh is None or mesh.rank == 0
+    log = MetricLogger(metrics_path if writer else None, stdout=wordy and writer)
     history: dict = {"train_loss": [], "train_acc": [], "val_acc": []}
     best_acc, best = -1.0, None
     try:
@@ -264,17 +290,20 @@ def train_classifier(
                 xb, yb = corpus[idx], corpus_labels[idx]
                 if aug is not None:
                     xb = augment_batch(aug, xb)
-                logits, stats = classifier_apply_train(model, xb)
+                xb, yb = shard_batch(xb, mesh), shard_batch(yb, mesh)
+                logits, stats = classifier_apply_train(model, xb, mesh=mesh)
                 loss = F.cross_entropy(logits, yb)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                metrics = torch.stack([loss, (logits.argmax(-1) == yb).float().mean()]).detach()
+                if mesh is not None:
+                    metrics = sync_gradients(trained, metrics, mesh, sharded=True)
                 opt.step()
                 sched.step()
                 update_running_stats(model, stats, bn_momentum)
-                with torch.no_grad():
-                    sums += torch.stack([loss, (logits.argmax(-1) == yb).float().mean()])
+                sums += metrics
             ep_loss, ep_acc = (sums / steps_per_epoch).tolist()
-            val_acc = (evaluate_classifier(model, val_images, val_labels, batch_size)
+            val_acc = (evaluate_classifier(model, val_images, val_labels, batch_size, mesh)
                        if len(val_idx) else float("nan"))
             history["train_loss"].append(ep_loss)
             history["train_acc"].append(ep_acc)
@@ -294,6 +323,7 @@ def main(argv=None):
     import os
 
     from artist_style_transfer_tpu_torch.data.datasets import get_painting_dataset
+    from artist_style_transfer_tpu_torch.parallel import initialize_multihost, make_mesh
     from artist_style_transfer_tpu_torch.train.checkpoint import (
         export_classifier_pth,
         save_params_npz,
@@ -323,15 +353,17 @@ def main(argv=None):
     ap.add_argument("--overwrite", action="store_true",
                     help="allow overwriting an existing best-2.pth")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard batches over all local devices (the port's parallel slice)")
+                    help="shard batches over every rank of the process group (one process "
+                         "a device; initialize_multihost reads the launcher's environment)")
     ap.add_argument("--metrics", default=None, help="JSONL metrics path")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel comes with the port's parallel slice "
-                                  "(ROADMAP Queue 1 item 12)")
     dev = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:  # one process a rank: join the launcher's process group
+        initialize_multihost(backend="nccl" if dev.type == "cuda" else "gloo")
+        mesh = make_mesh(device=dev)
     images, labels = get_painting_dataset(
         for_classifier=True, rescale_height=args.rescale_height,
         rescale_width=args.rescale_width, wordy=True)
@@ -345,7 +377,9 @@ def main(argv=None):
         num_epochs=args.num_epochs, batch_size=args.batch_size, lr=args.lr,
         weight_decay=args.weight_decay, freeze_body=not args.unfreeze,
         schedule=args.schedule, augment=args.augment, val_fraction=args.val_fraction,
-        seed=args.seed, model=model, metrics_path=args.metrics, device=dev)
+        seed=args.seed, model=model, mesh=mesh, metrics_path=args.metrics, device=dev)
+    if mesh is not None and mesh.rank != 0:
+        return  # rank 0 exports
     os.makedirs(args.out_dir, exist_ok=True)
     pth = os.path.join(args.out_dir, "best-2.pth")
     if os.path.exists(pth) and not args.overwrite:

@@ -36,6 +36,20 @@ What carries over from the JAX loop, and what changes:
   data gradients, in int8; ``quantize_gram`` (``"auto"``: with a quantized VGG)
   sends the deep taps' Grams through the int8 Gram.
 
+- ``mesh`` (a :class:`parallel.mesh.Mesh`, one rank a process) makes the step
+  data-parallel, as JAX's GSPMD step over a 'data' mesh: each rank runs the loss
+  on its equal slice of the global batch, the gradients and the reported losses
+  are summed over the ranks in one all-reduce and divided by their number (JAX's
+  ``pmean`` over equal shards) before Adam, so the params and Adam's state stay
+  bit-identical on every rank. A batch the ranks do not divide (the ragged tail)
+  runs whole on every rank, and rank 0's gradients and losses are broadcast
+  (JAX's ``tail_mesh``). A streamed batch is already this rank's slice. Inside
+  the step every dynamic int8 scale is the whole batch's: the loss hands the
+  mesh to the int8 nets and Gram, whose autograd functions keep it for the
+  backward's scales (:func:`ops.qconv.absmax_scale`). ``fold_batch`` folds nothing (the same
+  math), so each rank's shard runs the direct path, as JAX's ``shard_map`` folds
+  each device's shard.
+
 In the Gram modes every Gram of the step goes through
 :func:`ops.losses.style_loss_gram`, which runs the Hopper Gram kernel on a
 CUDA device: four launches a step. The 'classifier' mode computes no Gram:
@@ -70,6 +84,7 @@ from artist_style_transfer_tpu_torch.ops.losses import (
     cross_entropy_loss,
     style_loss_gram,
 )
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -118,6 +133,7 @@ class StepFns:
     epoch_fn: Callable
     steps_per_epoch: int
     # (batch on the device, step) -> (3,) on the device: one step of a streamed corpus
+    # (under a mesh, the batch is this rank's slice)
     stream_step_fn: Callable
 
 
@@ -140,6 +156,7 @@ def make_step_fns(
     remat: bool = False,
     qat: bool | str = False,
     quantize_gram: bool | str = "auto",
+    mesh: Mesh | None = None,
 ) -> StepFns:
     """Build the step functions of a training run.
 
@@ -150,7 +167,10 @@ def make_step_fns(
     ``vgg`` and ``classifier`` may be quantized; ``qat`` (True or ``"trunk"``,
     ``"all"``) picks the int8 convs of the TransformerNet's QAT forward;
     ``quantize_gram`` (``"auto"``, True, False) the int8 Gram of the deep taps.
+    ``mesh`` makes the step data-parallel over its ranks (the module docstring); a
+    mesh with a 'space' axis larger than 1 raises ``NotImplementedError``.
     """
+    data_parallel(mesh)
     if mode == "classifier" and (classifier is None or targets.labels is None):
         raise ValueError("'classifier' training needs a classifier and the targets' labels")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -172,6 +192,9 @@ def make_step_fns(
                    or classifier_is_quantized(classifier)
                    else copy.deepcopy(classifier).to(cdtype))
     forward = QATForward(model, "trunk" if qat is True else qat) if qat else model
+    # The int8 nets take the mesh whose ranks share the batch, for their dynamic scales.
+    int8_nets = (bool(qat), vgg_is_quantized(vgg_compute),
+                 clf_compute is not None and classifier_is_quantized(clf_compute))
     num_cycle = targets.num_cycle if mode == "cycle" else 0
 
     def remat_or_call(fn, *args, **kwargs):
@@ -179,37 +202,48 @@ def make_step_fns(
             return checkpoint(fn, *args, use_reentrant=False, **kwargs)
         return fn(*args, **kwargs)
 
-    def loss_fn(params, batch, content_r22, grams, step):
+    def loss_fn(params, batch, content_r22, grams, step, mesh=None):
+        # mesh: the ranks that hold this batch between them, for the int8 scales
+        qat_kw, vgg_kw, clf_kw = ({"mesh": mesh} if q else {} for q in int8_nets)
         if cdtype != torch.float32:
             params = {k: v.to(cdtype) for k, v in params.items()}
             batch = batch.to(cdtype)
-        gen = remat_or_call(functional_call, forward, params, (batch,))
+        gen = remat_or_call(functional_call, forward, params, (batch,), qat_kw)
         if mode == "classifier":
             # relu2_2 alone for the content loss (train_cnn.py:64-68); BGR [0,255] ->
             # RGB [0,1] -> torchvision stats for the classifier (train_cnn.py:312).
-            gen_r22 = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen), just_content=True)
+            gen_r22 = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen), just_content=True,
+                                    **vgg_kw)
             logits = clf_compute(torchvision_normalize(bgr_to_rgb(gen) / 255.0,
-                                                       reference_typo_stats))
+                                                       reference_typo_stats), **clf_kw)
             s_loss = style_weight * cross_entropy_loss(logits, targets.labels[: batch.shape[0]])
         else:
-            feats = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen))
+            feats = remat_or_call(vgg_compute, vgg_caffe_preprocess(gen), **vgg_kw)
             gen_r22 = feats["relu2_2"]
             s_loss = style_weight * style_loss_gram(
                 feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel,
-                quantize=bool(quantize_gram),
+                quantize=bool(quantize_gram), mesh=mesh,
             )
         c_loss = content_weight * content_loss(gen_r22, content_r22)
         return c_loss + s_loss, (c_loss, s_loss)
 
     params = dict(model.named_parameters())
 
-    def step_fn(batch, content_r22, step):
+    def step_fn(batch, content_r22, step, local: bool = False):
+        # local: the batch is this rank's slice already (a streamed batch under a mesh)
         optimizer.zero_grad(set_to_none=True)
-        total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step)
+        sharded = mesh is not None and (local or batch.shape[0] % mesh.size == 0)
+        if sharded and not local:
+            batch, content_r22 = shard_batch(batch, mesh), shard_batch(content_r22, mesh)
+        total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step,
+                                          mesh if sharded else None)
         total.backward()
+        losses = torch.stack([c_loss, s_loss, total]).detach()
+        if mesh is not None:
+            losses = sync_gradients(list(params.values()), losses, mesh, sharded)
         optimizer.step()
         scheduler.step()
-        return torch.stack([c_loss, s_loss, total]).detach()
+        return losses
 
     def epoch_fn(content_data, content_r22, perm, base_step):
         perm = torch.as_tensor(np.array(perm), dtype=torch.long).to(content_data.device)
@@ -226,10 +260,32 @@ def make_step_fns(
         # then the compute dtype, so the streamed trajectory is the resident one.
         with torch.no_grad():
             r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
-        return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step)
+        return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step,
+                       local=mesh is not None)
 
     return StepFns(loss_fn=loss_fn, step_fn=step_fn, epoch_fn=epoch_fn,
                    steps_per_epoch=steps_per_epoch, stream_step_fn=stream_step_fn)
+
+
+def sync_gradients(params: list[torch.Tensor], losses: torch.Tensor, mesh: Mesh,
+                   sharded: bool) -> torch.Tensor:
+    """Make every rank's ``.grad`` of ``params`` and ``losses`` the same, in one
+    collective: their mean over the ranks when each ran its own shard (``sharded``),
+    else rank 0's (each ran the whole batch). Returns the synced losses."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [losses.float()])
+    if sharded:
+        mesh.all_reduce_(flat).div_(mesh.size)
+    else:
+        mesh.broadcast_(flat)
+    at = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        if p.grad is None:
+            p.grad = g
+        p.grad.copy_(flat[at : at + n].view(g.shape))
+        at += n
+    return flat[at:].to(losses.dtype)
 
 
 def precompute_content_relu2_2(

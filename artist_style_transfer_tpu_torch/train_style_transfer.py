@@ -9,14 +9,16 @@ float32 and ``default`` with bfloat16.
 The int8 training flags run as in JAX: ``--quantize_loss [deep|all]`` (the int8
 VGG16 loss extractor), ``--qat [trunk|all]`` (the QAT TransformerNet),
 ``--quantize_gram auto|on|off`` (the int8 Gram of the deep taps; ``auto``: with
-``--quantize_loss``). ``--data_parallel`` parses and reaches ``train()``, which
-refuses it until the parallel slice.
+``--quantize_loss``). ``--data_parallel`` trains over a 'data' mesh of every rank
+of the process group (one process a device; start each with the same flags, under
+torchrun, Slurm or with ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``):
+``initialize_multihost`` runs first in every case, a no-op in a single process,
+which then trains as a world of one.
 ``--fold_batch on|vgg`` runs the direct path (the same math), ``--preview_every``
 writes a figure every N epochs and ``--profile_dir`` a trace of the second
-epoch. Two calls of
-the JAX CLI have no counterpart here: ``enable_compilation_cache`` (torch runs
-eagerly, and the kernels' build is kept in ``build/``), and
-``initialize_multihost``, which comes with the port's parallel slice.
+epoch. One call of the JAX CLI has no counterpart here: ``enable_compilation_cache``
+(torch runs eagerly, and the kernels' build is kept in ``build/``). The process
+group's backend is NCCL, or gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache_dir", default="dicts/")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over all local devices (the port's parallel slice)")
+                   help="shard batches over every rank of the process group (one process "
+                        "a device)")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16 = mixed-precision throughput mode")
     p.add_argument("--precision", default=None, choices=["highest", "default"],
@@ -85,6 +88,7 @@ def main(argv=None):
     """Parse ``argv`` and train; returns ``train()``'s (model, losses)."""
     args = build_parser().parse_args(argv)
     from artist_style_transfer_tpu_torch.ops.precision import set_precision
+    from artist_style_transfer_tpu_torch.parallel import initialize_multihost, make_mesh
     from artist_style_transfer_tpu_torch.train import train
 
     prec = args.precision
@@ -92,6 +96,9 @@ def main(argv=None):
         # bf16 runs take the fast paths; f32 keeps exact parity.
         prec = "default" if args.compute_dtype == "bfloat16" else "highest"
     set_precision(prec)
+    on_cpu = args.device is not None and args.device.startswith("cpu")
+    initialize_multihost(backend="gloo" if on_cpu else "nccl")
+    mesh = make_mesh(device=args.device) if args.data_parallel else None
     return train(
         style_method=args.style_method,
         artist=args.artist,
@@ -112,8 +119,7 @@ def main(argv=None):
         content_dir=args.content_dir,
         archive_dir=args.archive_dir,
         cache_dir=args.cache_dir,
-        # Any mesh is refused until the parallel slice; this names what was asked for.
-        mesh="all local devices" if args.data_parallel else None,
+        mesh=mesh,
         resume=args.resume,
         compute_dtype=args.compute_dtype,
         log_every_batches=args.log_every_batches,

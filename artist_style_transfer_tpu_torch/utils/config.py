@@ -28,7 +28,7 @@ class TrainConfig:
     data_dir: str = "images"
     model_dir: str = "models"
     log_every_batches: int = 12  # reference BATCH_INFO_EVERY, train_cnn.py:29
-    mesh_shape: tuple[int, ...] | None = None  # any value raises: the parallel slice
+    mesh_shape: tuple[int, ...] | None = None  # a 'data' mesh of this shape over the process group
     classifier_path: str = "models/best-2.pth"  # 'classifier' mode's frozen classifier
     reference_typo_stats: bool = False  # the reference training path's 0.546 G mean
     device: str | None = None  # torch device; None means "cuda"

@@ -152,7 +152,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``--quantize``, ``--classifier-path`` the CLI's ``best-2.pth`` and ``--port 0``: its
     port read from stdout, one stylize and one classify answered, exit 0 within 10 s of
     SIGINT;
-15. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+15. parallel: data-parallel training and evaluation and row-sharded stylization at full
+    width (the TransformerNet, the ResNet-50). Part 1, a world of one over NCCL in this
+    process, through the entry points, against their mesh-less runs: ``train(mesh=)``
+    'cycle' at 224x224, B=4, one epoch (losses within rtol 1e-4, 4 + 4*4 = 20 K1
+    launches), the training CLI with ``--data_parallel`` on 16 seeded JPEGs,
+    ``train_classifier(mesh=)`` at 256x256, B=32 on 160 seeded paintings (one epoch),
+    ``evaluate_with_classifier(mesh=)`` f32 and int8 on 4 seeded 1024x1024 images (the
+    same ``Acc=`` and ``Pred=`` lines), ``stylize_spatial`` and ``stylize_spatial_int8`` of
+    a seeded 512x512 image (> 45 dB against ``stylize`` / ``stylize_int8``). Part 2, two
+    ranks on cuda:0 over gloo (NCCL refuses two ranks on one card), one launch: the same
+    'cycle' run with a global B=4 (losses within rtol 1e-4 of the single process, the
+    ranks' params bit-identical, K1 20 a rank), ``stylize_spatial`` (> 45 dB),
+    ``stylize_spatial_int8`` (within 1.5, mean under 0.2, of ``stylize_int8``; 16 K2
+    launches a band; the first banded conv's codes and int32 sums identical to the
+    single-device ones), the sharded int8 eval (its ``Acc=`` and ``Pred=`` lines, 68 K2
+    launches a rank), ``train_classifier`` with global-batch BN (the epoch loss within
+    rtol 1e-2); then K2 against its plain version at every band shape of both ranks
+    (int32 error 0). Wall and device times of each part, and the collectives' times
+    from the profiler's ``gloo:``/``nccl:`` ranges and NCCL's kernels;
+16. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read images (``eval``'s CLI step, ``data``,
@@ -164,6 +183,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -265,6 +286,23 @@ SERVE_CLASSIFY = 8
 SERVE_ROUNDS = 3  # timed rounds of each traffic mix, after a warm-up round: their spread
 CLASSIFY_HW = (300, 280)
 CLASSIFY_SMALL_HW = (200, 180)
+# The parallel phase: a world of one over NCCL in this process, then 2 ranks on cuda:0
+# over gloo (NCCL refuses two ranks on one card as a duplicate GPU).
+PAR_RANKS = 2
+PAR_TRAIN_EPOCHS = 1  # 'cycle' at 224², global B=4, 16 images: 4 steps
+PAR_SPATIAL = 512  # stylize_spatial(_int8) of one flagship image over the ranks' row bands
+PAR_EVAL_IMAGES = 4  # one eval batch at 1024², B=4
+PAR_CLF_EPOCHS = 1  # train_classifier at 256², B=32, 160 images: 4 steps
+PAR_CLI_CONTENT = 16  # the training CLI --data_parallel on a small seeded workspace
+# train_classifier's epoch loss, the mean of 4 steps, against the single process: the
+# train-mode ResNet-50 amplifies the f32 rounding of another BN function (or another
+# split of the batch) and Adam's sign-like steps part the later steps further. On an
+# H100 80GB HBM3 at 700 W the world of one read 6.4e-4, 8.0e-4, 8.9e-4 and 1.34e-3 and
+# 2 ranks 1.3e-4, 1.4e-4, 1.7e-4 and 2.1e-4 (four runs of this phase; on the CPU one
+# ulp on the input images moves it 6.2e-4 at 32²); the BN itself is held at 1e-5 by the
+# CPU tests. A batch norm on each rank's own half is caught exactly instead: the ranks'
+# running statistics would differ.
+PAR_CLF_RTOL = 5e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -2659,6 +2697,275 @@ def serve_cli(models_dir: str, clf_pth: str, device: str, body: bytes, direct: n
             "classify": answer, "sigint_exit_s": stop_s, "exit_code": code}
 
 
+def par_trajectory(name: str, got: np.ndarray, want: np.ndarray, rtol: float) -> float:
+    """The largest relative difference of two loss arrays, required under ``rtol``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    require(got.shape == want.shape and bool(np.isfinite(got).all()),
+            f"parallel {name}: {got.shape} vs {want.shape}")
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    require(rel <= rtol, f"parallel {name}: losses {rel} apart (bar {rtol})")
+    return rel
+
+
+def stat(runs, key: str) -> float:
+    """The sum of a stat over the worker results that have it."""
+    return float(sum(r.get(key, 0.0) for r in runs))
+
+
+def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = TRAIN_SIZE,
+                   spatial: int = PAR_SPATIAL, eval_size: int = EVAL_SIZE,
+                   clf_size: int = ARTIST_CLF_SIZE, clf_n: int = ARTIST_CLF_IMAGES,
+                   clf_batch: int = ARTIST_CLF_BATCH, clf_rtol: float = PAR_CLF_RTOL) -> dict:
+    """Data-parallel training and evaluation and row-sharded stylization at full width:
+    part 1 a world of one over NCCL in this process through the normal entry points,
+    against their mesh-less runs; part 2 two ranks on cuda:0 over gloo, one launch, against
+    part 1's single-process runs; then K2 against its plain version at every band shape
+    part 2's ranks launched it at. Returns the kernels line's launches and the band
+    shapes' K2 sums. ``device="cpu"`` (with small sizes) rehearses it on the CPU, both
+    parts over gloo and without the K2 checks; ``clf_rtol`` is the classifier's loss
+    bar (at 32², B=8 on the CPU the world of one reads 5.0e-3: its last stage
+    normalizes 8 values a channel)."""
+    on_card = device == "cuda"
+    import torch.distributed as dist
+
+    from artist_style_transfer_tpu_torch import train_style_transfer
+    from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.infer.stylize import (
+        load_transfer_params,
+        stylize,
+        stylize_int8,
+    )
+    from artist_style_transfer_tpu_torch.models import transformer_q as tq
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
+    from artist_style_transfer_tpu_torch.ops.qconv import conv_i8, quant_i8
+    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.parallel.launch import free_port
+    from artist_style_transfer_tpu_torch.train import train
+    from artist_style_transfer_tpu_torch.train.classifier import train_classifier
+
+    content, paintings = train_data(train_size)
+    train_kw = dict(style_method="cycle", artist="A", num_epochs=PAR_TRAIN_EPOCHS,
+                    batch_size=TRAIN_BATCH, content_images=content, paintings=paintings,
+                    vgg=init_vgg16(torch.Generator().manual_seed(0)), model_dir=None,
+                    wordy=False)
+    steps = PAR_TRAIN_EPOCHS * TRAIN_CONTENT // TRAIN_BATCH
+    k1_expect = 4 * -(-TRAIN_PAINTINGS // 8) + 4 * steps if on_card else 0
+    model = load_transfer_params(os.path.join(GOLDENS, "golden_transfer.pth"), device="cpu")
+    calib = (np.random.default_rng(7).random((2, 128, 128, 3)) * 255).astype(np.float32)
+    qmodel = tq.quantize_transformer(model, calib)
+    image = np.random.default_rng(9).integers(0, 256, (spatial, spatial, 3), dtype=np.uint8)
+    images = [np.ascontiguousarray(im[:eval_size, :eval_size])
+              for im in eval_data()[:PAR_EVAL_IMAGES]]
+    artist = ARTISTS_19.index(CLF_ARTIST)
+    clf, dclf = seeded_classifier("cpu"), decisive_classifier("cpu", artist)
+    eval_kw = dict(batch_size=PAR_EVAL_IMAGES, artists=ARTISTS_19,
+                   crop_size=min(256, eval_size))
+    corpus, labels = artist_corpus(clf_n, clf_size)
+    clf_kw = dict(num_classes=ARTIST_CLF_CLASSES, num_epochs=PAR_CLF_EPOCHS,
+                  batch_size=clf_batch, wordy=False)
+
+    # Single-process references, on the device, no mesh.
+    cuda = lambda m: copy_to(m, device)  # noqa: E731
+    _, single_losses = train(device=device, **train_kw)
+    single_f32 = stylize(cuda(model), image[None], clip=False, device=device)[0].cpu().numpy()
+    single_i8 = stylize_int8(cuda(qmodel), image[None], clip=False,
+                             device=device)[0].float().cpu().numpy()
+    single_eval = {}
+    for name, c, q in (("f32", clf, False), ("int8", dclf, True)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            acc = evaluate_with_classifier(cuda(model), cuda(c), images, artist, quantize=q,
+                                           device=device, **eval_kw)
+        single_eval[name] = (acc, out.getvalue())
+    _, single_clf = train_classifier(corpus, labels, device=device, **clf_kw)
+    # DP training with the int8 options: quantize_loss (its int8 Gram on by "auto") and
+    # QAT "trunk", every dynamic scale the whole batch's.
+    int8_kw = dict(train_kw, quantize_loss=True, qat="trunk")
+    qconv_kernel.LAUNCHES = 0
+    with workers.recorded_scales() as scales:
+        _, single_int8 = train(device=device, **int8_kw)
+    single_int8_k2, single_int8_scales = qconv_kernel.LAUNCHES, np.asarray(scales)
+    qcuda = cuda(qmodel)
+    x0 = tq._in_relu_bf16(tq._reflect_conv_bf16(
+        torch.as_tensor(image, device=device)[None].to(torch.bfloat16).permute(0, 3, 1, 2)
+        .contiguous(memory_format=torch.channels_last), qcuda.stem_w, qcuda.stem_b),
+        qcuda.stem_gamma, qcuda.stem_beta)
+    first = qcuda.encoder[0]
+    x0_codes = quant_i8(x0, first.sin)
+    x0_acc = conv_i8(x0_codes, first.wq, first.stride, first.padding, 1, "reflect")
+
+    # Part 1: a world of one over NCCL, through the entry points.
+    t0 = time.perf_counter()
+    backend1 = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend1, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        mesh = make_mesh(device=device)
+        require(mesh.backend == backend1 and mesh.size == 1, f"parallel: mesh {mesh}")
+        one = {"train": workers.train_rank(mesh, train_kw, profile=True)}
+        one["train_rel"] = par_trajectory("world of one train()", one["train"]["losses"],
+                                          single_losses, 1e-4)
+        require(one["train"]["launches"]["k1"] == k1_expect,
+                f"parallel: world-of-one train() made {one['train']['launches']} launches")
+        ws = data_workspace(tmp, size_range=(train_size + 16, train_size + 97),
+                            painting_range=(train_size, train_size + 77),
+                            n_content=PAR_CLI_CONTENT, artists=(("Seeded Artist", 8),))
+        argv = ["--style_method", "cycle", "--artist", ws["artist"], "--num_epochs", "1",
+                "--batch_size", str(TRAIN_BATCH), "--content_data_size", str(PAR_CLI_CONTENT),
+                "--train_size", str(train_size), "--content_dir", ws["content"],
+                "--archive_dir", ws["archive"], "--cache_dir", ws["cache"], "--vgg_path",
+                ws["vgg"], "--device", device, "--quiet"]
+        _, cli_losses = train_style_transfer.main(argv + ["--model_dir",
+                                                          os.path.join(tmp, "one")])
+        one["cli"] = workers.train_cli_rank(mesh, argv + ["--model_dir",
+                                                          os.path.join(tmp, "dp")])
+        one["cli_rel"] = par_trajectory("world of one CLI", one["cli"]["losses"], cli_losses,
+                                        1e-4)
+        one["clf"] = workers.train_classifier_rank(mesh, corpus, labels, clf_kw, profile=True)
+        one["clf_rel"] = par_trajectory("world of one train_classifier",
+                                        one["clf"]["history"]["train_loss"],
+                                        single_clf["train_loss"], clf_rtol)
+        for name, c, q in (("f32", clf, False), ("int8", dclf, True)):
+            r = workers.evaluate_rank(mesh, model, c, images, artist,
+                                      dict(eval_kw, quantize=q), profile=True)
+            require((r["acc"], r["stdout"]) == single_eval[name],
+                    f"parallel: world-of-one eval {name}: {r['acc']} vs {single_eval[name][0]}")
+            one[f"eval_{name}"] = r
+        for name, net, want in (("spatial_f32", model, single_f32),
+                                ("spatial_int8", qmodel, single_i8)):
+            r = workers.stylize_rows_rank(mesh, net, image, False, profile=True)
+            r["psnr_db"] = psnr(np.clip(r.pop("out"), 0, 255), np.clip(want, 0, 255))
+            require(r["psnr_db"] > 45.0, f"parallel: world-of-one {name} {r['psnr_db']} dB")
+            one[name] = r
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    part1_s = time.perf_counter() - t0
+    runs1 = [v for v in one.values() if isinstance(v, dict)]
+
+    # Part 2: two ranks on cuda:0 over gloo, one launch.
+    jobs = [(workers.train_rank, (train_kw,), {"profile": True}),
+            (workers.stylize_rows_rank, (model, image, False), {"profile": True}),
+            (workers.stylize_rows_rank, (qmodel, image, False),
+             {"profile": True, "record_k2": True}),
+            (workers.first_int8_conv_rows_rank, (qmodel, x0.float().cpu().numpy()), {}),
+            (workers.evaluate_rank, (model, dclf, images, artist, dict(eval_kw, quantize=True)),
+             {"profile": True}),
+            (workers.train_classifier_rank, (corpus, labels, clf_kw), {"profile": True}),
+            (workers.train_rank, (int8_kw,), {"profile": True, "record_scales": True})]
+    t0 = time.perf_counter()
+    ranks = launch(workers.run_jobs, PAR_RANKS, jobs, backend="gloo",
+                   device="cuda:0" if on_card else "cpu", threads=None if on_card else 2,
+                   timeout_s=900)
+    part2_s = time.perf_counter() - t0
+    train_r, f32_r, i8_r, conv_r, eval_r, clf_r, tq8_r = ranks[0]
+    for other in ranks[1:]:
+        for i, name in ((0, "DP 'cycle'"), (5, "train_classifier"), (6, "DP int8")):
+            require(all(np.array_equal(v, ranks[0][i]["params"][k])
+                        for k, v in other[i]["params"].items()),
+                    f"parallel: the {name} ranks' params or running statistics differ")
+        require(np.array_equal(other[0]["losses"], train_r["losses"])
+                and np.array_equal(other[6]["losses"], tq8_r["losses"])
+                and np.array_equal(other[6]["scales"], tq8_r["scales"]),
+                "parallel: the DP ranks' losses or int8 scales differ")
+        require(np.array_equal(other[2]["out"], i8_r["out"]),
+                "parallel: the ranks' int8 images differ")
+    two = {"train_rel": par_trajectory("2-rank DP 'cycle'", train_r["losses"], single_losses,
+                                       1e-4),
+           "clf_rel": par_trajectory("2-rank train_classifier", clf_r["history"]["train_loss"],
+                                     single_clf["train_loss"], clf_rtol),
+           "int8_train_rel": par_trajectory("2-rank DP int8", tq8_r["losses"], single_int8,
+                                            1e-4)}
+    # The ranks' int8 scales are bit-identical (checked above: each rank's own scales
+    # would differ). Against the single process the first quarter of the run (the
+    # targets and the first step) is read, not held: a forward scale should equal the
+    # single process's and a backward one be twice it (each rank's loss is the mean
+    # over its half), but cuDNN rounds a batch of 2 apart from one of 4 in the last bit,
+    # an int8 code on a rounding edge flips, and the flip moves the next absmax (the
+    # CPU, whose convs round each image alike, reads 0; an H100 80GB HBM3 at 700 W
+    # read 4.1e-2 and 4.0e-2 at most, a median of 1.6e-3).
+    require(tq8_r["scales"].shape == single_int8_scales.shape,
+            f"parallel: DP int8 took {tq8_r['scales'].shape} scales, not "
+            f"{single_int8_scales.shape}")
+    ratio = (tq8_r["scales"] / single_int8_scales)[: len(single_int8_scales) // 4]
+    gap = np.minimum(np.abs(ratio - 1.0), np.abs(ratio / PAR_RANKS - 1.0))
+    two["int8_scale_gap"] = {"max": float(gap.max()), "median": float(np.median(gap)),
+                             "exact_share": float(np.mean(gap == 0.0))}
+    require(tq8_r["launches"]["k2"] == single_int8_k2 and (single_int8_k2 > 0) == on_card,
+            f"parallel: DP int8 rank 0 made {tq8_r['launches']['k2']} K2 launches, the "
+            f"single process {single_int8_k2}")
+    require(train_r["launches"]["k1"] == k1_expect,
+            f"parallel: DP rank 0 made {train_r['launches']} launches, not {k1_expect} K1")
+    two["f32_psnr_db"] = psnr(np.clip(f32_r["out"], 0, 255), np.clip(single_f32, 0, 255))
+    require(two["f32_psnr_db"] > 45.0, f"parallel: stylize_spatial {two['f32_psnr_db']} dB")
+    diff = np.abs(i8_r["out"] - single_i8)
+    two["int8_max_abs"], two["int8_mean_abs"] = float(diff.max()), float(diff.mean())
+    require(two["int8_max_abs"] <= 1.5 and two["int8_mean_abs"] < 0.2,
+            f"parallel: stylize_spatial_int8 off by {two['int8_max_abs']} "
+            f"(mean {two['int8_mean_abs']})")
+    require(i8_r["launches"]["k2"] == (QCONV_TRANSFORMER if on_card else 0),
+            f"parallel: a band made {i8_r['launches']['k2']} K2 launches")
+    codes_ok = bool(np.array_equal(conv_r["codes"], x0_codes.cpu().numpy()))
+    acc_ok = bool(np.array_equal(conv_r["acc"], x0_acc.cpu().numpy()))
+    require(codes_ok and acc_ok, f"parallel: first banded int8 conv codes {codes_ok}, "
+                                 f"int32 {acc_ok}")
+    require((eval_r["acc"], eval_r["stdout"]) == single_eval["int8"],
+            f"parallel: sharded int8 eval Acc={eval_r['acc']} vs {single_eval['int8'][0]}")
+    require(eval_r["launches"]["k2"] == (QCONV_TRANSFORMER + QCONV_RESNET if on_card else 0)
+            and eval_r["launches"]["k1"] == 0,
+            f"parallel: sharded int8 eval made {eval_r['launches']} launches")
+    require(ranks[1][4]["stdout"] == "", "parallel: rank 1 printed the eval")
+
+    # K2 against its plain version at every band shape either rank launched it at.
+    band_calls = []
+    for rank in ranks:
+        for (xn, wn, *rest), count in rank[2]["k2_calls"]:
+            x = torch.from_numpy(xn).cuda().contiguous(memory_format=torch.channels_last)
+            w = torch.from_numpy(wn).cuda().contiguous(memory_format=torch.channels_last)
+            band_calls += [(x, w, *rest)] * count
+    band = (check_qconv_shapes(band_calls, "stylize_spatial_int8_band", peaks) if on_card
+            else {"shapes": 0, "launches": 0, "s32_max_abs_err": 0})
+    runs2 = [r for r in ranks[0] if "secs" in r]
+    emit("parallel", ranks=PAR_RANKS, backends={"part1": backend1, "part2": "gloo"},
+         part1_wall_s=part1_s, part2_wall_s=part2_s,
+         part1_device_ms=stat(runs1, "device_ms"), part2_rank0_device_ms=stat(runs2, "device_ms"),
+         part1_nccl_host_ms=stat(runs1, "collective_host_ms"),
+         part1_nccl_device_ms=stat(runs1, "collective_device_ms"),
+         part2_rank0_gloo_host_ms=stat(runs2, "collective_host_ms"),
+         world_of_one={k: (v if not isinstance(v, dict) else
+                           {kk: v[kk] for kk in ("secs", "launches", "device_ms",
+                                                 "collective_host_ms", "collective_device_ms",
+                                                 "psnr_db") if kk in v})
+                       for k, v in one.items()},
+         two_ranks={**two, "codes_equal": codes_ok, "int32_equal": acc_ok,
+                    "eval_int8_acc": eval_r["acc"],
+                    "jobs": {name: {kk: r[kk] for kk in ("secs", "launches", "device_ms",
+                                                        "collective_host_ms") if kk in r}
+                             for name, r in zip(("train_dp", "stylize_spatial",
+                                                 "stylize_spatial_int8", "first_conv",
+                                                 "eval_int8_dp", "train_classifier_dp",
+                                                 "train_dp_int8"),
+                                                ranks[0])}},
+         k2_band_shapes=band["shapes"], k2_band_launches=band["launches"],
+         k2_band_s32_max_abs_err=band["s32_max_abs_err"])
+    return {"k1_launches": {"train_dp": train_r["launches"]["k1"],
+                            "train_dp_int8": tq8_r["launches"]["k1"]},
+            "k2_launches": {"stylize_spatial_int8": i8_r["launches"]["k2"],
+                            "eval_int8_dp": eval_r["launches"]["k2"],
+                            "train_dp_int8": tq8_r["launches"]["k2"]},
+            "band": band}
+
+
+def copy_to(module: torch.nn.Module, device: str) -> torch.nn.Module:
+    """A copy of ``module`` on ``device`` (the original stays where it is)."""
+    import copy
+
+    return copy.deepcopy(module).to(device)
+
+
 def sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -2909,6 +3216,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(artist_clf["tmp"], ignore_errors=True)
     launches.update(serve["k1_launches"])
+    par = phase_parallel(peaks)
+    launches.update(par["k1_launches"])
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -2917,7 +3226,7 @@ def main(argv=None) -> int:
           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
                     "cudnn_bf16_ms", "library_ms", "library_k2_ms", "library_k2_device_ms",
                     "library_launches", "library_failed_launches")}
-    paths = {**int8["shapes"], **int8_train["shapes"]}
+    paths = {**int8["shapes"], **int8_train["shapes"], "stylize_spatial_int8_band": par["band"]}
     k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
     # K2's data gradients: the sums over one step's dgrad launches of each int8 training net.
@@ -2946,7 +3255,10 @@ def main(argv=None) -> int:
                         "(relu1_2, relu2_2) "
                         "and 4 for the targets, their bf16 baseline 4 a step; "
                         "train_cli is the training CLI from directories, train_stream "
-                        "train() over content_file_stream",
+                        "train() over content_file_stream; train_dp rank 0 of 2 ranks on one "
+                        "card over gloo, 'cycle' at 224x224, global B=4, one epoch (4 for the "
+                        "targets, 4 a step on the rank's 2 images), train_dp_int8 the same "
+                        "with quantize_loss and QAT trunk (4 for the targets, 2 a step)",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
@@ -2963,7 +3275,7 @@ def main(argv=None) -> int:
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
         "launches_by_path": {**int8["launches"], **int8_train["launches"],
-                             **serve["launches"]},
+                             **serve["launches"], **par["k2_launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
@@ -2988,7 +3300,12 @@ def main(argv=None) -> int:
                         "classifier 4 steps x 104, cli the --quantize_loss --qat CLI; "
                         "serve_int8_stylize and serve_classify phase serve's int8 stylize and "
                         "classify requests, each path alone over HTTP (16 a stylize batch, 52 "
-                        "a classify batch)",
+                        "a classify batch); stylize_spatial_int8 and eval_int8_dp rank 0 of 2 "
+                        "ranks on one card over gloo: one 512x512 image's band of rows (16), "
+                        "one 1024x1024 B=4 eval batch's 2 images (68); train_dp_int8 rank 0 "
+                        "of DP 'cycle' training at 224x224, global B=4, one epoch, with "
+                        "quantize_loss and QAT trunk (4 steps x 38 + 6, the single "
+                        "process's count)",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
                      "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
@@ -3000,8 +3317,10 @@ def main(argv=None) -> int:
                      "sums over the same launches; "
                      "cudnn_bf16_ms the bf16 conv of each shape, the real dtype's reference; "
                      "paths holds each path's sums (train_*: one step of the int8 training "
-                     "nets, forward and dgrad launches apart), dgrad the sums over the "
-                     "train_*_dgrad paths, and each qconv line its shape's plan",
+                     "nets, forward and dgrad launches apart; stylize_spatial_int8_band both "
+                     "ranks' launches at the row-band shapes of a 512x512 image over 2 "
+                     "ranks), dgrad the sums over the train_*_dgrad paths, and each qconv "
+                     "line its shape's plan",
         "paths": paths,
         "dgrad": dgrad,
         "peaks": variant,

@@ -29,6 +29,7 @@ from artist_style_transfer_tpu_torch.utils.config import TrainConfig
 from artist_style_transfer_tpu_torch.utils.jax_params import transformer_state_dict_from_jax
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
 from tests.test_torch_data import one_torch_thread  # noqa: F401
+from tests.test_torch_distributed import space_mesh, world_of_one
 
 SIZE = 32
 
@@ -239,7 +240,7 @@ def test_checkpoint_roundtrip_restores_model_and_optimizer(tmp_path):
 
 
 UNPORTED = [
-    (dict(mesh=object()), "parallel slice"),
+    (dict(mesh=space_mesh()), "item 12b"),
     (dict(qat=True, fold_batch=True), "batch->H folded"),
     (dict(quantize_loss="all", fold_batch=True), "use quantize_loss='deep'"),
 ]
@@ -248,7 +249,8 @@ UNPORTED = [
 @pytest.mark.parametrize("kw,slice_name", UNPORTED,
                          ids=["-".join(f"{k}={v!r}"[:24] for k, v in kw.items()) for kw, _ in UNPORTED])
 def test_train_refuses_what_later_slices_bring(hooks, tmp_path, kw, slice_name):
-    """``mesh`` waits for the parallel slice; the int8 options refuse what JAX refuses."""
+    """A mesh with a 'space' axis waits for item 12b; the int8 options refuse what JAX
+    refuses."""
     args = dict(hooks, style_method="cycle", artist="A", num_epochs=1, batch_size=2,
                 model_dir=str(tmp_path))
     args.update(kw)
@@ -338,8 +340,13 @@ def test_train_from_config(hooks, tmp_path):
     model, losses = train_from_config(cfg, content_images=hooks["content_images"],
                                       paintings=hooks["paintings"], vgg=hooks["vgg"], wordy=False)
     assert losses.shape == (1, 3) and os.path.exists(tmp_path / "Cfg" / "cycle" / "transfer_17-25_1.pth")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        train_from_config(TrainConfig(mesh_shape=(1,), device="cpu"))
+    # mesh_shape=(1,): a world of one over gloo trains exactly as without a mesh
+    with world_of_one():
+        _, dp = train_from_config(TrainConfig(**dict(cfg.__dict__, model_dir=None,
+                                                     mesh_shape=(1,))),
+                                  content_images=hooks["content_images"],
+                                  paintings=hooks["paintings"], vgg=hooks["vgg"], wordy=False)
+    np.testing.assert_array_equal(dp, losses)
     with pytest.raises(FileNotFoundError, match="elsewhere/content/"):
         train_from_config(TrainConfig(data_dir=str(tmp_path / "elsewhere"), device="cpu"),
                           vgg=hooks["vgg"], wordy=False, model_dir=None)

@@ -41,6 +41,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
     transformer_state_dict_from_jax,
 )
 from tests.test_torch_data import one_torch_thread  # noqa: F401
+from tests.test_torch_distributed import world_of_one
 
 
 def rel_err(got, ref) -> float:
@@ -357,8 +358,13 @@ def test_evaluate_with_classifier_matches_jax(eval_setup, capsys):
 def test_evaluate_with_classifier_refusals(eval_setup):
     s = eval_setup
     args = (s["model"], s["classifier"], s["images"][:1], 0)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        evaluate_with_classifier(*args, mesh=object(), device="cpu")
+    # a world of one over gloo: the accuracy without a mesh
+    from artist_style_transfer_tpu_torch.parallel import make_mesh
+
+    with world_of_one():
+        assert (evaluate_with_classifier(*args, mesh=make_mesh(device="cpu"), wordy=False,
+                                         device="cpu")
+                == evaluate_with_classifier(*args, wordy=False, device="cpu"))
     with pytest.raises(ValueError, match="not on"):
         evaluate_with_classifier(*args, device="meta")
     if not torch.cuda.is_available():

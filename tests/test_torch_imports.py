@@ -97,6 +97,19 @@ def test_port_and_chip_smoke_import_no_jax():
     assert offenders == {}
 
 
+PARALLEL = ("__init__", "distributed", "launch", "mesh", "spatial", "workers")
+
+
+@pytest.mark.parametrize("name", PARALLEL)
+def test_parallel_modules_are_scanned_and_import_no_jax(name):
+    """``parallel/`` (the process group, the launcher, the rank functions a spawned child
+    imports, the row bands) is part of the scan, and imports neither JAX nor the JAX
+    package."""
+    path = PORT / "parallel" / f"{name}.py"
+    assert path in port_files()
+    assert [m for m in imported_modules(path) if is_forbidden(m)] == []
+
+
 # --- the PNG reader -----------------------------------------------------------------
 
 

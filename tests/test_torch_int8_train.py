@@ -61,6 +61,7 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
 )
 from tests.test_torch_classifier import numpy_params, rel_err
 from tests.test_torch_data import one_torch_thread  # noqa: F401
+from tests.test_torch_distributed import space_mesh
 
 SIZE, N, P, B = 32, 8, 3, 4
 LR, WD, CW, SW = 0.01, 1e-4, 17.0, 25.0
@@ -463,7 +464,8 @@ def test_quantize_gram_follows_the_extractor(hooks, monkeypatch):
     """``"auto"`` turns the int8 Gram on with a quantized VGG and off without one."""
     calls = []
     real = tlosses.gram_matrix_int8
-    monkeypatch.setattr(tlosses, "gram_matrix_int8", lambda f: calls.append(f.shape) or real(f))
+    monkeypatch.setattr(tlosses, "gram_matrix_int8",
+                        lambda f, mesh=None: calls.append(f.shape) or real(f, mesh))
     kw = dict(hooks, num_epochs=1, content_images=hooks["content_images"][:B])
     train("cycle", "A", **kw)
     assert not calls
@@ -518,7 +520,7 @@ REFUSED = [
     (dict(quantize_loss="all", fold_batch=True), NotImplementedError, "use quantize_loss='deep'"),
     (dict(quantize_loss="all", fold_batch="vgg"), NotImplementedError, "use quantize_loss='deep'"),
     (dict(quantize_loss=2, fold_batch=True), NotImplementedError, "use quantize_loss='deep'"),
-    (dict(mesh=object()), NotImplementedError, "parallel slice"),
+    (dict(mesh=space_mesh()), NotImplementedError, "item 12b"),
     (dict(qat="half"), ValueError, "qat must be"),
     (dict(quantize_gram="on"), ValueError, "quantize_gram must be"),
 ]

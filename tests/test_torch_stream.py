@@ -26,7 +26,8 @@ from artist_style_transfer_tpu_torch.data import stream as tstream
 from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
 from artist_style_transfer_tpu_torch.train import train
 from artist_style_transfer_tpu_torch.train.loop import epoch_permutation
-from tests.test_torch_data import one_torch_thread  # noqa: F401
+from tests.test_torch_data import jax_native_loader, one_torch_thread  # noqa: F401
+from tests.test_torch_distributed import world_of_one
 
 SIZE = 32
 
@@ -58,6 +59,8 @@ def hooks():
 def test_content_file_stream_matches_jax(content_dir, monkeypatch, native, procs, batch, cap):
     if native and not tnative.available():
         pytest.skip(f"native loader unavailable: {tnative.load_error}")
+    if native:  # JAX's loader loads the same library, whatever another worker builds
+        assert jax_native_loader()
     monkeypatch.setattr(jnative, "available", lambda: native)
     monkeypatch.setattr(tnative, "available", lambda: native)
     with warnings.catch_warnings(record=True) as warned:
@@ -145,8 +148,17 @@ def test_device_prefetch_order_and_bounded_buffer():
 def test_device_prefetch_refusals_at_call_time():
     with pytest.raises(ValueError, match="buffer_size"):
         device_prefetch(iter([np.zeros((1,), np.float32)]), buffer_size=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         device_prefetch(iter([]), sharding=object(), device="cpu")
+    # a world of one: this rank's slices, on its device, as without a mesh
+    from artist_style_transfer_tpu_torch.parallel import make_mesh
+
+    with world_of_one():
+        batches = [np.full((2, 1), i, np.float32) for i in range(3)]
+        got = list(device_prefetch(iter(batches), sharding=make_mesh(device="cpu"), device="cpu"))
+        assert [torch.equal(g, torch.from_numpy(b)) for g, b in zip(got, batches)] == [True] * 3
+        with pytest.raises(ValueError, match="device"):
+            device_prefetch(iter([]), sharding=make_mesh(device="cpu"), device="meta")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             device_prefetch(iter([]))  # None means CUDA

@@ -81,7 +81,6 @@ def test_cli_precision_follows_the_compute_dtype(ws, tmp_path):
 
 
 LATER = [
-    (["--data_parallel"], "parallel slice"),
     (["--qat", "--fold_batch", "on"], "batch->H folded"),
     (["--quantize_loss", "all", "--fold_batch", "vgg"], "quantize_loss='deep'"),
 ]
@@ -92,6 +91,22 @@ def test_cli_flags_of_later_slices_reach_train(ws, tmp_path, flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli(ws, tmp_path, "--style_method", "cycle", *flags)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+def test_cli_data_parallel_trains_as_a_world_of_one(ws, tmp_path):
+    """``--data_parallel`` in a world of one over gloo: exactly the losses and the weights
+    of the run without it (one rank's all-reduce is the identity)."""
+    from tests.test_torch_distributed import world_of_one
+
+    model, losses = cli(ws, tmp_path / "one", "--style_method", "cycle")
+    with world_of_one():
+        dp_model, dp_losses = cli(ws, tmp_path / "dp", "--style_method", "cycle",
+                                  "--data_parallel")
+    np.testing.assert_array_equal(dp_losses, losses)
+    for k, v in model.state_dict().items():
+        assert torch.equal(dp_model.state_dict()[k], v), k
+    assert sorted(os.listdir(tmp_path / "dp" / ARTIST / "cycle")) == sorted(
+        os.listdir(tmp_path / "one" / ARTIST / "cycle"))
 
 
 @pytest.mark.parametrize("flags", [["--quantize_loss"], ["--qat", "all"],
