@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference ``artist_style_transfer_tpu``,
 with the same subpackage layout (``ops``, ``models``, ``infer``, ``train``,
-``utils``) so that every module here has exactly one counterpart there.
+``data``, ``parallel``, ``diffusion``, ``utils``) so that every module here has
+exactly one counterpart there.
 It imports ``torch`` and never ``jax`` or the JAX package.
 
 Conventions:

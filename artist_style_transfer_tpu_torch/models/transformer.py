@@ -206,3 +206,9 @@ def init_transformer(
                 for p in (m.weight, m.bias):
                     p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
     return model.to(device)
+
+
+def transformer_param_count(model: nn.Module) -> int:
+    """The number of parameters (JAX ``transformer_param_count``: 1,712,771 for the
+    reference TransformerNet)."""
+    return sum(p.numel() for p in model.parameters())

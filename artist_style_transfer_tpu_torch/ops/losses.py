@@ -61,3 +61,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     """
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels[:, None]).mean()
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, peak: float = 255.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB, the parity metric (JAX ``psnr``): ``10 log10(peak^2 /
+    mse(a, b))`` with the MSE in f32; identical inputs give ``inf``."""
+    return 10.0 * torch.log10(peak * peak / mse(a, b))

@@ -15,3 +15,12 @@ def reflect_pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
     if pad == 0:
         return x
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def reflect_pad_w(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad only the W axis of an NCHW tensor by ``pad`` on each side (JAX
+    ``reflect_pad_w``, whose batch-folded TPU path keeps the H padding in the fold's
+    separator rows). ``pad == 0`` is the identity. Keeps ``channels_last``."""
+    if pad == 0:
+        return x
+    return F.pad(x, (pad, pad, 0, 0), mode="reflect")

@@ -7,7 +7,8 @@
   {model, optimizer, scheduler, completed} (the JAX package writes an orbax
   directory under the same name; orbax is JAX-only).
 - ``.npz`` parameter files in the JAX package's key layout (``encoder/0/w``,
-  HWIO weights), so each package reads the other's.
+  HWIO weights), so each package reads the other's: the TransformerNet's, the
+  classifier's and the diffusion UNet's.
 - ``.pth`` export under the reference keys in float64 (cnn.py:43), which for
   the port is its own state dict; the trained artist classifier as the
   reference's ``{'model': state_dict}`` (:func:`export_classifier_pth`).
@@ -21,9 +22,13 @@ import warnings
 import numpy as np
 import torch
 
+from artist_style_transfer_tpu_torch.diffusion.unet import DiffModel
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.utils.jax_params import (
     classifier_state_dict_to_jax,
+    diff_model_state_dict_from_jax,
+    diff_model_state_dict_to_jax,
+    numbered_to_lists,
     transformer_state_dict_from_jax,
     transformer_state_dict_to_jax,
 )
@@ -139,10 +144,8 @@ def restore_checkpoint(
     return int(payload["completed"])
 
 
-def save_params_npz(path: str, model: torch.nn.Module) -> None:
-    """Flat ``.npz`` of a TransformerNet or a ResNet-50 classifier in the JAX key
-    layout (``encoder/0/w``, ``residual/3/conv1/gamma``, ``stages/1/0/down_bn/var``,
-    ...), as JAX ``save_params_npz`` writes each pytree."""
+def _flatten_tree(tree) -> dict[str, np.ndarray]:
+    """A nested dict/list pytree -> ``{"a/0/b": leaf}``, the keys of JAX ``_path_key``."""
     flat: dict[str, np.ndarray] = {}
 
     def walk(node, key):
@@ -155,14 +158,13 @@ def save_params_npz(path: str, model: torch.nn.Module) -> None:
         else:
             flat[key] = node
 
-    to_jax = (classifier_state_dict_to_jax if isinstance(model, ResNet50Classifier)
-              else transformer_state_dict_to_jax)
-    walk(to_jax(model.state_dict()), "")
-    np.savez(path, **flat)
+    walk(tree, "")
+    return flat
 
 
-def load_params_npz(path: str) -> dict[str, torch.Tensor]:
-    """A TransformerNet ``.npz`` (either package's) -> the port's state dict."""
+def _read_npz_tree(path: str):
+    """A ``save_params_npz`` file of either package -> its nested dict/list pytree of
+    numpy arrays (the inverse of :func:`_flatten_tree`)."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -171,15 +173,31 @@ def load_params_npz(path: str) -> dict[str, torch.Tensor]:
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = z[key]
+    return numbered_to_lists(tree)
 
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
 
-    return transformer_state_dict_from_jax(lists(tree))
+def save_params_npz(path: str, model: torch.nn.Module) -> None:
+    """Flat ``.npz`` of a TransformerNet, a ResNet-50 classifier or a diffusion UNet in
+    the JAX key layout (``encoder/0/w``, ``stages/1/0/down_bn/var``,
+    ``down/0/blocks/1/conv1/w``, ...), as JAX ``save_params_npz`` writes each pytree."""
+    if isinstance(model, ResNet50Classifier):
+        to_jax = classifier_state_dict_to_jax
+    elif isinstance(model, DiffModel):
+        to_jax = diff_model_state_dict_to_jax
+    else:
+        to_jax = transformer_state_dict_to_jax
+    np.savez(path, **_flatten_tree(to_jax(model.state_dict())))
+
+
+def load_params_npz(path: str) -> dict[str, torch.Tensor]:
+    """A TransformerNet ``.npz`` (either package's) -> the port's state dict."""
+    return transformer_state_dict_from_jax(_read_npz_tree(path))
+
+
+def load_diff_model_npz(path: str) -> dict[str, torch.Tensor]:
+    """A diffusion UNet ``.npz`` (either package's, e.g. the CLI's
+    ``models/diffusion/diff_model.npz``) -> a :class:`diffusion.unet.DiffModel` state dict."""
+    return diff_model_state_dict_from_jax(_read_npz_tree(path))
 
 
 def export_pth(path: str, model: torch.nn.Module) -> None:

@@ -37,6 +37,36 @@ def save_tensor_image(filename: str, tensor_bgr) -> None:
     cv2.imwrite(filename, np.clip(arr, 0, 255).astype(np.uint8))
 
 
+def imshow_array(img_rgb_255, out_path: str | None = None, title: str | None = None):
+    """[0,255] RGB -> the [0,1] clipped display array (JAX ``imshow_array``; the
+    reference's imshow, train_cnn.py:128-134, without its blocking ``plt.pause``).
+
+    ``out_path`` also writes the figure: with matplotlib (Agg) as JAX writes it, the
+    ``title`` above the image; where matplotlib is missing, the display array alone
+    with OpenCV.
+    """
+    disp = np.clip(np.asarray(img_rgb_255) / 255.0, 0.0, 1.0)
+    if out_path is not None:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        try:
+            import matplotlib
+        except ImportError:
+            import cv2
+
+            cv2.imwrite(out_path, np.round(disp[..., ::-1] * 255.0).astype(np.uint8))
+            return disp
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure()
+        plt.imshow(disp)
+        if title:
+            plt.title(title)
+        fig.savefig(out_path)
+        plt.close(fig)
+    return disp
+
+
 def _paeth(a: int, b: int, c: int) -> int:
     p = a + b - c
     pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)

@@ -3,9 +3,10 @@
 The inverse of the JAX ``utils/torch_import.py`` importers, for params given
 as numpy-array pytrees (``jax.tree.map(np.asarray, params)``), so parity
 tests can run both packages on the same weights; and, for the TransformerNet,
-the TransformerNet and the classifier, the way back
-(:func:`transformer_state_dict_to_jax`, :func:`classifier_state_dict_to_jax`),
-which writes the ``.npz`` artifacts in the JAX key layout. This module imports neither JAX
+the classifier and the diffusion UNet, the way back
+(:func:`transformer_state_dict_to_jax`, :func:`classifier_state_dict_to_jax`,
+:func:`diff_model_state_dict_to_jax`), which writes the ``.npz`` artifacts in the
+JAX key layout. This module imports neither JAX
 nor the JAX package.
 
 Layouts: JAX conv weights are HWIO and become OIHW. JAX transpose-conv
@@ -263,3 +264,59 @@ def quantized_vgg16_from_jax(qparams: list[dict]):
                    "b": _q(p["b"]).to(dtype)}
              for p in qparams]
     return QuantizedVGG16Features(convs, len(real))
+
+
+def diff_model_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``init_diff_model`` pytree -> :class:`diffusion.unet.DiffModel` state dict.
+
+    The module tree has the JAX tree's names: a path ``down/0/blocks/1/conv1/w`` is the
+    key ``down.0.blocks.1.conv1.weight``. Conv ``w`` HWIO -> OIHW, dense ``w`` (I, O) ->
+    (O, I), ``b`` -> ``bias``; ``class_emb`` and the GroupNorm ``gamma``/``beta`` as they
+    are."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}.{k}" if key else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{key}.{i}")
+        elif key.endswith(".w"):
+            a = np.asarray(node)
+            sd[key[:-2] + ".weight"] = _conv_w(a) if a.ndim == 4 else _t(a.T)
+        elif key.endswith(".b"):
+            sd[key[:-2] + ".bias"] = _t(node)
+        else:
+            sd[key] = _t(node)
+
+    walk(params, "")
+    return sd
+
+
+def diff_model_state_dict_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """:class:`diffusion.unet.DiffModel` state dict -> JAX ``init_diff_model`` pytree of
+    f32 numpy arrays (inverse of :func:`diff_model_state_dict_from_jax`): numbered
+    modules become lists, as JAX's ``down`` and ``up`` are."""
+    tree: dict = {}
+    for key, v in sd.items():
+        *parents, leaf = key.split(".")
+        a = v.detach().cpu().float().numpy()
+        if leaf == "weight":
+            leaf, a = "w", np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
+        elif leaf == "bias":
+            leaf = "b"
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(a, dtype=np.float32, order="C", copy=True)
+    return numbered_to_lists(tree)
+
+
+def numbered_to_lists(node):
+    """A nested dict whose keys at some level are all digits -> lists at that level."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [numbered_to_lists(node[str(i)]) for i in range(len(node))]
+    return {k: numbered_to_lists(v) for k, v in node.items()}

@@ -170,12 +170,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     launches a rank), ``train_classifier`` with global-batch BN (the epoch loss within
     rtol 1e-2); then K2 against its plain version at every band shape of both ranks
     (int32 error 0). Wall and device times of each part, and the collectives' times
-    from the profiler's ``gloo:``/``nccl:`` ranges and NCCL's kernels;
-16. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+    from the profiler's ``gloo:``/``nccl:`` ranges and NCCL's kernels. In part 1 also
+    the world of one's ``train_classifier`` stepped in lockstep with the mesh-less one
+    and a second mesh-less one (one epoch, 256x256, B=32; ``parallel_lockstep``
+    lines): the first step and layer where BN outputs, gradients, running statistics
+    and parameters part, each trainer's first step against the same step in f64; once
+    as the trainers run and once with deterministic algorithms, where the two mesh-less
+    trainers must be bit-identical;
+16. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
+    batches' shapes (``stylize_int8`` 512x512 and the int8 classify 256x256 at B = 1, 2
+    and 8), the sharded int8 eval's (N=2) and one DP int8 training step's (N=2), each
+    recorded from the path's own function and held against its plain version, with
+    warm times, bounds and the library yardsticks;
+17. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
+    64, 19 classes, T = 1000, B = 32, 15,118,659 parameters): ``diff_model_apply`` with
+    every weight redrawn (within 1e-4 of max of the port's CPU) and guided DDIM-50 from
+    one x_T (> 45 dB against the CPU); ``train_diffusion`` for 2 epochs on 128 seeded
+    images (finite, falling; warm ms/step, the step's FLOPs and bound, peak memory); ms
+    per model evaluation of DDPM, DDIM-50 and DPM++-20 at B=16, with and without
+    guidance; the diffusion CLI's ``train``, ``sample`` (guided DDIM, DPM++) and ``eval``
+    (16 samples) on a seeded workspace; then the CFID quality curve at the config of
+    ``tests/goldens/diffusion_cfid_curve.json`` (32x32, 2 classes, 256 real and 128
+    generated images, 80 epochs, base 32, cosine) for its 12 sampler configurations,
+    with the orderings of ``tests/test_diffusion.py`` held at 3 decimals; K1 and K2
+    0 launches on every one of these paths;
+18. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read images (``eval``'s CLI step, ``data``,
-``train_artist_classifier``, ``serve``). Without CUDA,
+``train_artist_classifier``, ``serve``, ``diffusion``). Without CUDA,
 or without the port's package beside it, it exits non-zero and prints no
 result.
 """
@@ -303,6 +326,34 @@ PAR_CLI_CONTENT = 16  # the training CLI --data_parallel on a small seeded works
 # CPU tests. A batch norm on each rank's own half is caught exactly instead: the ranks'
 # running statistics would differ.
 PAR_CLF_RTOL = 5e-3
+SERVE_ROW_BATCHES = (1, 2, 8)  # phase kernel_rows: K2 at the serve batches (4 is phase int8's)
+# Phase diffusion at the diffusion CLI's defaults (JAX diffusion/cli.py:20-29).
+DIFF_SIZE = 64
+DIFF_BASE = 64
+DIFF_CLASSES = 19
+DIFF_T = 1000
+DIFF_BATCH = 32
+DIFF_TRAIN_IMAGES = 128
+DIFF_EPOCHS = 2
+DIFF_WARM_STEPS = 10
+DIFF_CPU_IMAGES = 2  # the card-vs-CPU UNet and guided DDIM-50
+DIFF_SAMPLE_BATCH = 16  # ms per model evaluation of each sampler
+DIFF_DDIM_STEPS = 50
+DIFF_DPMPP_STEPS = 20
+DIFF_CLI_ARTISTS = (("Alfred Sisley", 24), ("Vincent van Gogh", 24))
+DIFF_CLI_BATCH = 16
+DIFF_CLI_SAMPLES = 16
+# The CFID quality curve at the config of tests/goldens/diffusion_cfid_curve.json.
+CURVE_SIZE = 32
+CURVE_CLASSES = 2
+CURVE_REAL = 256
+CURVE_GEN = 128
+CURVE_EPOCHS = 80
+CURVE_BASE = 32
+CURVE_LR = 2e-4
+CURVE_BATCH = 32
+CURVE_CONFIGS = ("ddpm-1000", "ddim-50", "ddim-20", "ddim-10", "ddim-5", "ddim-3", "ddim-2",
+                 "dpmpp-20", "dpmpp-12", "dpmpp-8", "dpmpp-4", "dpmpp-2")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1475,10 +1526,12 @@ def qconv_library(x, w, stride, lo, hi, dil, exact) -> dict:
     return out
 
 
-def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
+def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict, cold: bool = True) -> dict:
     """K2 against its plain f64 version on each distinct shape of ``calls`` (a path's
     launches), in all three epilogues, and its times; returns the path's sums over its
-    launches (a shape counts as often as the path launches it)."""
+    launches (a shape counts as often as the path launches it). ``cold=False`` skips the
+    profiler's cold-L2 device time (and with it the check that it is not under the
+    bound): the warm events time stays."""
     from artist_style_transfer_tpu_torch.ops.cuda.qconv_kernel import conv_i8_cuda, plan_for
     from artist_style_transfer_tpu_torch.ops.qconv import Dequant, apply_epilogue, conv_i8_plain
 
@@ -1528,30 +1581,34 @@ def check_qconv_shapes(calls: list[tuple], path: str, peaks: dict) -> dict:
         run = lambda: conv_i8_cuda(*args)  # noqa: E731  (the main path's epilogue)
         y = run()
         ms = time_ms(run)
-        dev = device_ms(run, "qconv_kernel")
+        dev = device_ms(run, "qconv_kernel") if cold else None
         plain_ms = time_ms(lambda: conv_i8_plain(x, w, stride, (lo, hi), dil, mode, out),
                            iters=3, warmup=1)
         t_ops, t_bytes, macs = qconv_bound(x, w, y, stride, dil, peaks)
         bound = max(t_ops, t_bytes)
-        require(dev >= bound / 1.05, f"K2 {path} {key}: device {dev} ms under the bound "
-                                     f"{bound} ms: the bound is miscounted")
+        require(dev is None or dev >= bound / 1.05, f"K2 {path} {key}: device {dev} ms under "
+                                                    f"the bound {bound} ms: miscounted")
         lib = qconv_library(x, w, stride, lo, hi, dil, exact)
         emit("qconv", path=path, x=list(x.shape), w=list(w.shape), stride=stride, pads=[lo, hi],
              lhs_dilation=dil, pad_mode=mode, epilogue=key[-1], launches=count,
              plan=plan_for(x, w, stride, lo, hi, dil, reflect).describe(),
              s32_max_abs_err=s32_err, bf16_mismatches=bf16_bad, dequant_max_rel_err=dq_rel,
              ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
-             bound_by="operations" if t_ops >= t_bytes else "bytes", bound_share=bound / dev,
-             gmac=macs / 1e9, tops=2 * macs / dev / 1e9, **lib)
-        for k, v in zip(keys, (ms, dev, plain_ms, bound, t_ops, t_bytes, lib["cudnn_bf16_ms"])):
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             bound_share=bound / (dev or ms), gmac=macs / 1e9,
+             tops=2 * macs / (dev or ms) / 1e9, **lib)
+        for k, v in zip(keys, (ms, dev or 0.0, plain_ms, bound, t_ops, t_bytes,
+                               lib["cudnn_bf16_ms"])):
             sums[k] += v * count
         if lib["int_mm_ms"] is not None:
             library["library_ms"] += lib["int_mm_ms"] * count
             library["library_k2_ms"] += ms * count
-            library["library_k2_device_ms"] += dev * count
+            library["library_k2_device_ms"] += (dev or 0.0) * count
             library["library_launches"] += count
         elif "int_mm_error" in lib:
             library["library_failed_launches"] += count
+    if not cold:
+        sums["device_ms"] = library["library_k2_device_ms"] = None
     return {**sums, **library, **worst, "launches": len(calls), "shapes": len(groups)}
 
 
@@ -2828,6 +2885,16 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
         one["clf_rel"] = par_trajectory("world of one train_classifier",
                                         one["clf"]["history"]["train_loss"],
                                         single_clf["train_loss"], clf_rtol)
+        # ROADMAP Queue 3: where the world of one parts from the mesh-less trainer.
+        # The mesh-less trainer is itself not reproducible on the card (its backward's
+        # cuDNN algorithms and atomics), so the lockstep runs twice: as the trainers run,
+        # and with deterministic algorithms, where two mesh-less trainers must agree.
+        for deterministic in (False, True):
+            lock = classifier_lockstep(mesh, corpus, labels, clf_batch, device, deterministic)
+            emit("parallel_lockstep", **lock)
+        require(not lock["first_part"]["meshless_again"],
+                f"parallel: two deterministic mesh-less trainers part: "
+                f"{lock['first_part']['meshless_again']}")
         for name, c, q in (("f32", clf, False), ("int8", dclf, True)):
             r = workers.evaluate_rank(mesh, model, c, images, artist,
                                       dict(eval_kw, quantize=q), profile=True)
@@ -2957,6 +3024,528 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
                             "eval_int8_dp": eval_r["launches"]["k2"],
                             "train_dp_int8": tq8_r["launches"]["k2"]},
             "band": band}
+
+
+def classifier_lockstep(mesh, images: np.ndarray, labels: np.ndarray, batch: int,
+                        device: str, deterministic: bool = False,
+                        num_classes: int = ARTIST_CLF_CLASSES, seed: int = 2,
+                        lr: float = 1e-3, weight_decay: float = 1e-2) -> dict:
+    """The world of one's ``train_classifier`` and the mesh-less one stepped in lockstep
+    (ROADMAP Queue 3): ``train_classifier``'s first epoch written out (its split, init,
+    optimizer, permutation and updates) for three trainers from one state on the same
+    batches: the mesh-less one, one over ``mesh`` (global-batch BN through
+    ``_GlobalBatchNormFunction``, the gradients through ``sync_gradients``), and a second
+    mesh-less one, the control for nondeterminism. Each step compares with the mesh-less
+    trainer, in order, every BN's output, the gradients (after the all-reduce), the
+    running statistics and the parameters after the step, and records the first step and
+    layer where each parts. At the first step both are also held against the same step
+    in f64 (the mesh-less trainer's model and batch in float64): each layer's BN output
+    and each gradient, relative to its largest magnitude. ``deterministic`` runs it all
+    with cuDNN's deterministic algorithms and ``torch.use_deterministic_algorithms``
+    (warn only), and returns the ops that warned: those with no deterministic form."""
+    import warnings
+
+    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if deterministic:
+                torch.backends.cudnn.deterministic = True
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            out = _lockstep(mesh, images, labels, batch, device, num_classes, seed, lr,
+                            weight_decay)
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+    out["deterministic"] = deterministic
+    out["nondeterministic_ops"] = sorted({str(w.message).split(" does not have")[0][:160]
+                                          for w in caught if "determinis" in str(w.message)})
+    return out
+
+
+def _lockstep(mesh, images, labels, batch, device, num_classes, seed, lr, weight_decay):
+    import copy
+
+    import torch.nn.functional as F
+
+    from artist_style_transfer_tpu_torch.models import resnet as resnet_mod
+    from artist_style_transfer_tpu_torch.models.resnet import (
+        classifier_apply_train,
+        init_classifier,
+        update_running_stats,
+    )
+    from artist_style_transfer_tpu_torch.train.classifier import (
+        _split_train_val,
+        make_classifier_optimizer,
+    )
+    from artist_style_transfer_tpu_torch.train.loop import epoch_permutation, sync_gradients
+
+    train_idx, _ = _split_train_val(len(images), 0.2, seed)
+    corpus = torch.as_tensor(np.asarray(images, np.float32)[train_idx]).to(device)
+    ys = torch.as_tensor(np.asarray(labels)[train_idx], dtype=torch.int64).to(device)
+    steps = len(train_idx) // batch
+    start = init_classifier(torch.Generator().manual_seed(seed), device, num_classes)
+    trainers = {}
+    for name, m, dtype in (("meshless", None, torch.float32), ("world_of_one", mesh, torch.float32),
+                           ("meshless_again", None, torch.float32), ("f64", None, torch.float64)):
+        model = copy.deepcopy(start).to(dtype)
+        opt, sched = make_classifier_optimizer(model, lr, steps, weight_decay, True)
+        trainers[name] = (model, opt, sched, m)
+    perm = epoch_permutation(seed, 0, len(train_idx)).to(device)
+    real_bn = resnet_mod.batch_norm_train
+
+    def step(model, opt, sched, m, xb, yb) -> dict:
+        outs = []
+
+        def recording(h, *args, **kw):
+            out = real_bn(h, *args, **kw)
+            outs.append(out[0].detach())
+            return out
+
+        resnet_mod.batch_norm_train = recording
+        try:
+            logits, stats = classifier_apply_train(model, xb.to(next(model.parameters()).dtype),
+                                                   mesh=m)
+        finally:
+            resnet_mod.batch_norm_train = real_bn
+        loss = F.cross_entropy(logits, yb)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        metrics = loss.detach()[None]
+        if m is not None:
+            metrics = sync_gradients([p for _, p in named], metrics, m, sharded=True)
+        opt.step()
+        sched.step()
+        update_running_stats(model, stats, 0.1)
+        buffers = dict(model.named_buffers())
+        return {"loss": float(metrics[0]), "bn_output": list(zip(stats, outs)),
+                "gradient": [(n, p.grad.detach().clone()) for n, p in named],
+                "running_stat": [(f"{k}.{s}", buffers[f"{k}.{s}"].clone()) for k in stats
+                                 for s in ("running_mean", "running_var")],
+                "parameter": [(n, p.detach().clone()) for n, p in model.named_parameters()]}
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+
+    kinds = ("bn_output", "gradient", "running_stat", "parameter")
+    first = {name: {} for name in ("world_of_one", "meshless_again")}
+    worst = {name: dict.fromkeys(kinds, 0.0) for name in first}
+    losses = {name: [] for name in ("meshless", "world_of_one", "meshless_again")}
+    vs_f64 = {}
+    for s in range(steps):
+        idx = perm[s * batch: (s + 1) * batch]
+        xb, yb = corpus[idx], ys[idx]
+        recs = {name: step(*t, xb, yb) for name, t in trainers.items()
+                if name != "f64" or s == 0}
+        ref = recs["meshless"]
+        for name in losses:
+            losses[name].append(recs[name]["loss"])
+        if s == 0:  # both f32 trainers against the f64 step, layer by layer
+            for name in ("meshless", "world_of_one"):
+                vs_f64[name] = {}
+                for kind in ("bn_output", "gradient"):
+                    errs = [rel(a, b) for (_, a), (_, b) in zip(recs[name][kind],
+                                                                recs["f64"][kind])]
+                    vs_f64[name][kind] = {"max": max(errs), "median": float(np.median(errs))}
+            del trainers["f64"]
+        for name in first:
+            for kind in kinds:
+                diffs = [(k, rel(a, b)) for (k, a), (_, b) in zip(recs[name][kind], ref[kind])]
+                worst[name][kind] = max(worst[name][kind], max(d for _, d in diffs))
+                parted = [(k, d) for k, d in diffs if d > 0.0]
+                if parted and kind not in first[name]:
+                    first[name][kind] = {"step": s, "layer": parted[0][0], "rel": parted[0][1],
+                                         "layers_parted": len(parted), "layers": len(diffs)}
+        del recs, ref
+    loss_rel = {name: float(np.max(np.abs(np.asarray(losses[name]) - losses["meshless"])
+                                   / np.abs(losses["meshless"])))
+                for name in first}
+    return {"steps": steps, "batch": batch, "first_part": first, "worst_rel": worst,
+            "step0_vs_f64": vs_f64, "step_losses": losses, "step_loss_rel": loss_rel}
+
+
+def phase_kernel_rows(peaks: dict, smi: str) -> dict:
+    """The kernel-table rows of paths whose kernel times were not taken apart: K1 at the
+    DP 'cycle' taps (224x224, N=2 a rank, f32), and K2 at the shapes of the serve batches
+    (``stylize_int8`` at 512x512 and the int8 classify at 256x256, B = 1, 2 and 8; B = 4 is
+    phase int8's), the sharded int8 eval (N = 2 a rank) and DP int8 training (one step at
+    N = 2 a rank, ``quantize_loss`` + QAT trunk): each recorded from a call of the path's
+    own function at that batch, K2 held against its plain version at every shape."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, quantize_eval_pipeline
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_int8
+    from artist_style_transfer_tpu_torch.models.resnet_q import (
+        classifier_apply_int8,
+        quantize_classifier,
+    )
+    from artist_style_transfer_tpu_torch.models.transformer_q import quantize_transformer
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16, quantize_vgg16_loss
+    from artist_style_transfer_tpu_torch.ops import gram as gram_ops
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+    from artist_style_transfer_tpu_torch.ops.image import torchvision_normalize
+
+    # K1 at the DP 'cycle' rank's taps: 224x224, N=2, f32.
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    k1 = dict.fromkeys(keys, 0.0)
+    n = TRAIN_BATCH // PAR_RANKS
+    for tap, down, c in TAPS:
+        side = TRAIN_SIZE // down
+        f = torch.rand((n, side, side, c), generator=gen, device="cuda")
+        err = rel_to_max(gram_kernel.gram_matrix_cuda(f), gram_ops.gram_matrix_plain(f))
+        require(err <= 1e-4, f"kernel_rows: K1 {tap} N={n}: rel err {err}")
+        f3, scale = f.reshape(n, side * side, c), 1.0 / float(c * side * side)
+        run = lambda: gram_kernel.gram_matrix_cuda(f)  # noqa: E731
+        t_ops, t_bytes = gram_bound(n, side * side, c, torch.float32, peaks)
+        vals = (time_ms(run), device_ms(run, "gram_tile_kernel"),
+                time_ms(lambda: gram_ops.gram_matrix_plain(f)),
+                time_ms(lambda: torch.bmm(f3.transpose(1, 2), f3) * scale),
+                max(t_ops, t_bytes), t_ops, t_bytes)
+        for k, v in zip(keys, vals):
+            k1[k] += v
+    emit("kernel_rows_k1", path="train_dp", size=TRAIN_SIZE, n=n, dtype="float32",
+         taps=len(TAPS), **k1, bound_by="operations" if k1["ops_ms"] >= k1["bytes_ms"]
+         else "bytes", card=smi)
+
+    # K2 at the serve, sharded-eval and DP int8 shapes, without the profiler's cold time.
+    model = load_transfer_params(os.path.join(GOLDENS, "golden_transfer.pth"), device="cuda")
+    calib = (np.random.default_rng(7).random((2, 128, 128, 3)) * 255).astype(np.float32)
+    qmodel = quantize_transformer(model, calib)
+    clf = seeded_classifier("cuda")
+    qclf = quantize_classifier(clf)
+    rng = np.random.default_rng(11)
+    rows = {}
+    for b in SERVE_ROW_BATCHES:
+        images = rng.integers(0, 256, (b, INT8_SIZE, INT8_SIZE, 3), dtype=np.uint8)
+        crops = torch.as_tensor(rng.random((b, CLF_SIZE, CLF_SIZE, 3)), dtype=torch.float32,
+                                device="cuda")
+        rows[f"serve_stylize_b{b}"] = check_qconv_shapes(
+            record_qconv_calls(lambda: stylize_int8(qmodel, images, device="cuda")),
+            f"serve_stylize_b{b}", peaks, cold=False)
+        rows[f"serve_classify_b{b}"] = check_qconv_shapes(
+            record_qconv_calls(lambda: classifier_apply_int8(qclf, torchvision_normalize(crops))),
+            f"serve_classify_b{b}", peaks, cold=False)
+    pair = np.stack(eval_data()[:PAR_RANKS])
+    qm_eval, qc_eval = quantize_eval_pipeline(model, clf, pair)
+    rows["eval_int8_dp"] = check_qconv_shapes(
+        record_qconv_calls(lambda: eval_logits(qm_eval, qc_eval, torch.as_tensor(
+            pair, device="cuda"))), "eval_int8_dp", peaks, cold=False)
+    vgg = init_vgg16(torch.Generator().manual_seed(0), device="cuda")
+    content, paintings = train_data()
+    fns, data, r22 = train_step_fns(quantize_vgg16_loss(vgg, "deep", torch.float32), content,
+                                    paintings, "auto", "cuda", qat="trunk")
+    rows["train_dp_int8"] = check_qconv_shapes(
+        record_qconv_calls(lambda: fns.step_fn(data[:n], r22[:n], 0)), "train_dp_int8", peaks,
+        cold=False)
+    for name, r in rows.items():
+        emit("kernel_rows_k2", path=name, **r, card=smi)
+    return {"k1_train_dp": k1, "k2": rows}
+
+
+def cfid_curve_orderings(curve: dict[str, float]) -> list[str]:
+    """The orderings of ``tests/test_diffusion.py``'s CFID-curve test that do not fail on
+    ``curve`` ({sampler config: CFID}), read at the committed artifact's 3-decimal
+    rounding; the empty list when all hold."""
+    c = {k: round(float(v), 3) for k, v in curve.items()}
+    checks = {
+        "ddpm-1000 best": c["ddpm-1000"] == min(c.values()),
+        "dpmpp-12 <= 1.05 ddim-50": c["dpmpp-12"] <= c["ddim-50"] * 1.05 + 1e-9,
+        "dpmpp-4 <= 1.05 ddim-50": c["dpmpp-4"] <= c["ddim-50"] * 1.05 + 1e-9,
+        "ddim-50 <= ddim-5 <= ddim-3 <= ddim-2": (c["ddim-50"] <= c["ddim-5"] <= c["ddim-3"]
+                                                 <= c["ddim-2"]),
+        "ddim-2 >= 1.05 ddim-50": c["ddim-2"] >= c["ddim-50"] * 1.05,
+        "dpmpp-12 <= dpmpp-2": c["dpmpp-12"] <= c["dpmpp-2"],
+    }
+    return [name for name, ok in checks.items() if not ok]
+
+
+def synthetic_paintings(n: int, seed: int, size: int = CURVE_SIZE,
+                        classes: int = CURVE_CLASSES) -> tuple[np.ndarray, np.ndarray]:
+    """(NHWC BGR [0,255] images, labels): the class-structured synthetic distribution of
+    ``tools/diffusion_quality_curve.py`` ``make_synthetic``, copied: class-oriented
+    gratings of random frequency and phase under a class-coloured Gaussian blob (blue
+    for even classes, red for odd), plus pixel noise."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, size=n)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    imgs = np.zeros((n, size, size, 3), np.float32)
+    for i in range(n):
+        c = labels[i]
+        axis = yy if c % 2 == 0 else xx
+        grating = np.sin(2 * np.pi * rng.uniform(5.0, 9.0) * axis + rng.uniform(0.0, 2 * np.pi))
+        img = np.stack([110 + 70 * grating] * 3, axis=-1)
+        cy, cx = rng.uniform(0.25, 0.75, size=2)
+        sig = rng.uniform(0.10, 0.18)
+        blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig * sig)))
+        img[..., 0 if c % 2 == 0 else 2] += 120 * blob
+        img += rng.normal(0.0, 4.0, img.shape)
+        imgs[i] = np.clip(img, 0, 255)
+    return imgs, labels.astype(np.int64)
+
+
+def redrawn_diff_model(num_classes: int, base: int, seed: int):
+    """A ``DiffModel`` with every weight redrawn at U(+-1/sqrt(fan_in)), biases and betas at
+    U(+-0.1), gammas at U(0.8, 1.2) and the class embedding at N(0, 0.5^2): the init's
+    near-zero ``conv2``, ``attn.proj`` and ``conv_out`` would make every residual branch
+    and the output about 0, and a card-vs-CPU check on it nearly empty."""
+    from artist_style_transfer_tpu_torch.diffusion.unet import DiffModel
+
+    model = DiffModel(num_classes, base)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            u = torch.rand(p.shape, generator=g)
+            if name.endswith("weight"):
+                p.copy_((u * 2 - 1) / p[0].numel() ** 0.5)
+            elif name == "class_emb":
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+            elif name.endswith("gamma"):
+                p.copy_(0.8 + 0.4 * u)
+            else:
+                p.copy_((u * 2 - 1) * 0.1)
+    return model
+
+
+def sampler_evals(name: str, steps: int, T: int) -> int:
+    """Model evaluations of a sampler run (DPM++ takes one fewer than its timesteps)."""
+    from artist_style_transfer_tpu_torch.diffusion.sample import timestep_subsequence
+
+    if name == "ddpm":
+        return T
+    n = len(timestep_subsequence(T, steps))
+    return n if name == "ddim" else n - 1
+
+
+def counted(fn):
+    """``fn()`` with the K1 and K2 counters zeroed just before it and read just after:
+    (result, seconds ending in a sync, {"k1": n, "k2": n})."""
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel, qconv_kernel
+
+    sync()
+    gram_kernel.LAUNCHES = qconv_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    secs = time.perf_counter() - t0
+    return out, secs, {"k1": gram_kernel.LAUNCHES, "k2": qconv_kernel.LAUNCHES}
+
+
+def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: int = DIFF_SIZE,
+                    base: int = DIFF_BASE, T: int = DIFF_T, n_train: int = DIFF_TRAIN_IMAGES,
+                    curve_epochs: int = CURVE_EPOCHS, curve_T: int = DIFF_T,
+                    cli_samples: int = DIFF_CLI_SAMPLES) -> dict:
+    """Class-conditional diffusion at the CLI's defaults (64x64, base 64, 19 classes,
+    T = 1000, B = 32): the UNet and guided DDIM-50 on the card against the port's CPU,
+    ``train_diffusion`` (2 epochs on 128 seeded images: finite, falling, warm ms/step,
+    the step's FLOPs and bound, peak memory), ms per model evaluation of each sampler
+    at B = 16 with and without guidance, and the CLI's train, sample and eval on a seeded
+    workspace; then the CFID quality curve at the config of
+    ``tests/goldens/diffusion_cfid_curve.json`` (32x32, 2 classes, 256 real and 128
+    generated images, 80 epochs, base 32, cosine schedule) with its orderings held.
+    K1 and K2 are on none of these paths: each path's counters are zeroed just before
+    it and must read 0 just after. ``device="cpu"`` with small sizes rehearses it (the
+    card-vs-CPU checks then compare the CPU with itself, and the curve's orderings are
+    printed, not held)."""
+    from artist_style_transfer_tpu_torch.diffusion import (
+        GaussianDiffusion,
+        cfid,
+        diff_model_apply,
+        diff_sample,
+        diff_sample_ddim,
+        diff_sample_dpmpp,
+        train_diffusion,
+    )
+    from artist_style_transfer_tpu_torch.diffusion import cli as diff_cli
+    from artist_style_transfer_tpu_torch.diffusion.train import diffusion_step
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19, init_classifier
+    from torch.utils.flop_counter import FlopCounterMode
+
+    on_card = device == "cuda"
+    launches: dict[str, dict] = {}
+    samplers = {"ddpm": diff_sample, "ddim": diff_sample_ddim, "dpmpp": diff_sample_dpmpp}
+
+    # The UNet and guided DDIM-50 on the device against the port's CPU, from one state.
+    cpu_model = redrawn_diff_model(DIFF_CLASSES, base, 3)
+    model = copy_to(cpu_model, device)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((DIFF_CPU_IMAGES, size, size, 3), generator=g)
+    t, y = torch.tensor([3, T - 129]), torch.tensor([4, 17])
+    with torch.no_grad():
+        want = diff_model_apply(cpu_model, x, t, y)
+        got = diff_model_apply(model, x.to(device), t.to(device), y.to(device)).cpu()
+    apply_rel = rel_to_max(got, want)
+    require(apply_rel <= 1e-4, f"diffusion: diff_model_apply {apply_rel} of max from the CPU")
+    emit("diffusion_apply", size=size, base=base, classes=DIFF_CLASSES, n=DIFF_CPU_IMAGES,
+         params=sum(p.numel() for p in model.parameters()), rel_to_max=apply_rel,
+         max_abs_out=float(want.abs().max()), card=smi)
+    d_cpu, d_dev = GaussianDiffusion.make(T), GaussianDiffusion.make(T, device=device)
+    clf_cpu = seeded_classifier("cpu")
+    clf = copy_to(clf_cpu, device)
+    kw = dict(shape=(size, size), steps=DIFF_DDIM_STEPS, guidance_scale=2.0,
+              classifier_y=[ARTISTS_19.index(CLF_ARTIST)] * 2)
+    x_T = torch.randn((DIFF_CPU_IMAGES, size, size, 3), generator=g)
+    t0 = time.perf_counter()
+    ref = diff_sample_ddim(cpu_model, d_cpu, None, y, classifier=clf_cpu, x_T=x_T,
+                           device="cpu", **kw).numpy()
+    cpu_s = time.perf_counter() - t0
+    out, secs, launches["diffusion_ddim_guided"] = counted(lambda: diff_sample_ddim(
+        model, d_dev, None, y, classifier=clf, x_T=x_T, device=device, **kw))
+    db = psnr(out.cpu().numpy(), ref)
+    require(db > 45.0, f"diffusion: guided DDIM-50 {db} dB from the CPU")
+    emit("diffusion_ddim_guided", steps=DIFF_DDIM_STEPS, n=DIFF_CPU_IMAGES, size=size,
+         guidance_scale=2.0, psnr_db=db, secs=secs, cpu_secs=cpu_s,
+         saturated_share=float(np.mean((ref == 0.0) | (ref == 255.0))), card=smi)
+    del cpu_model, clf_cpu
+
+    # train_diffusion: 2 epochs on seeded images, then warm steps, FLOPs and the bound.
+    images, labels = synthetic_paintings(n_train, 1, size, DIFF_CLASSES)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (trained, _, losses), train_s, launches["diffusion_train"] = counted(lambda: train_diffusion(
+        images, labels, num_classes=DIFF_CLASSES, num_timesteps=T, num_epochs=DIFF_EPOCHS,
+        batch_size=DIFF_BATCH, base_channels=base, wordy=False, device=device))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            f"diffusion: train_diffusion losses {losses.tolist()}")
+    step_model = copy_to(trained, device)
+    opt = torch.optim.Adam(step_model.parameters(), lr=1e-4)
+    xb = torch.as_tensor(images[:DIFF_BATCH], device=device) / 127.5 - 1.0
+    yb = torch.as_tensor(labels[:DIFF_BATCH], device=device)
+    tb = torch.randint(0, T, (DIFF_BATCH,), generator=torch.Generator().manual_seed(2)).to(device)
+    nb = torch.randn(xb.shape, generator=torch.Generator().manual_seed(3)).to(device)
+    run_step = lambda: diffusion_step(step_model, opt, d_dev, xb, yb, tb, nb)  # noqa: E731
+    for _ in range(3):
+        run_step()
+    _, warm_s, _ = counted(lambda: [run_step() for _ in range(DIFF_WARM_STEPS)])
+    with FlopCounterMode(display=False) as counter:
+        run_step()
+    flops = counter.get_total_flops()
+    bound_ms = min(flops / peaks["fp32"], 3 * flops / peaks["tf32"]) * 1e3 if peaks else None
+    ms_step = warm_s * 1e3 / DIFF_WARM_STEPS
+    emit("diffusion_train", size=size, base=base, classes=DIFF_CLASSES, T=T, batch=DIFF_BATCH,
+         images=n_train, epochs=DIFF_EPOCHS, epoch_losses=losses.tolist(), train_secs=train_s,
+         warm_ms_per_step=ms_step, images_per_sec=DIFF_BATCH * 1e3 / ms_step,
+         step_gflop=flops / 1e9, step_bound_ms=bound_ms,
+         bound_share=None if bound_ms is None else bound_ms / ms_step, peak_mem_gib=peak_gib,
+         k1_launches=launches["diffusion_train"]["k1"],
+         k2_launches=launches["diffusion_train"]["k2"], card=smi)
+    del step_model, opt
+
+    # ms per model evaluation of each sampler at B = 16, unguided and guided. DDPM runs
+    # over a 100-step schedule: its work a model evaluation does not depend on T.
+    ys = [i % DIFF_CLASSES for i in range(DIFF_SAMPLE_BATCH)]
+    d_ddpm = GaussianDiffusion.make(min(T, 100), device=device)
+    per_eval, sampled = {}, {"k1": 0, "k2": 0}
+    for name, steps in (("ddpm", None), ("ddim", DIFF_DDIM_STEPS), ("dpmpp", DIFF_DPMPP_STEPS)):
+        for guided in (False, True):
+            skw = dict(shape=(size, size), device=device)
+            if steps is not None:
+                skw["steps"] = steps
+            if guided:
+                skw.update(classifier=clf, guidance_scale=1.0, classifier_y=ys)
+            dd = d_ddpm if name == "ddpm" else d_dev
+            def fn(name=name, dd=dd, skw=skw):
+                return samplers[name](trained, dd, torch.Generator().manual_seed(0), ys, **skw)
+
+            fn()  # warm-up
+            out, secs, n = counted(fn)
+            require(bool(torch.isfinite(out).all()), f"diffusion: {name} samples not finite")
+            evals = sampler_evals(name, steps or 0, dd.num_timesteps)
+            per_eval[f"{name}{'_guided' if guided else ''}"] = {
+                "evals": evals, "secs": secs, "ms_per_eval": secs * 1e3 / evals}
+            sampled = {k: sampled[k] + n[k] for k in sampled}
+    launches["diffusion_sample"] = sampled
+    emit("diffusion_samplers", batch=DIFF_SAMPLE_BATCH, size=size, ddim_steps=DIFF_DDIM_STEPS,
+         dpmpp_steps=DIFF_DPMPP_STEPS, ddpm_T=d_ddpm.num_timesteps, guidance_scale=1.0,
+         per_eval=per_eval, card=smi)
+    del trained
+
+    # The CLI: train, sample (DDIM guided, DPM++) and eval on a seeded workspace.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diffusion_")
+    try:
+        ws = data_workspace(tmp, painting_range=(size, 2 * size), n_content=1,
+                            artists=DIFF_CLI_ARTISTS)
+        clf_path = os.path.join(ws["models"], "best-2.pth")
+        torch.save({"model": seeded_classifier("cpu").state_dict()}, clf_path)
+        npz = os.path.join(ws["models"], "diffusion", "diff_model.npz")
+        common = ["--image_size", str(size), "--num_timesteps", str(T), "--base_channels",
+                  str(base), "--device", device]
+        artist = DIFF_CLI_ARTISTS[0][0].replace(" ", "_")
+        n_paint = sum(k for _, k in DIFF_CLI_ARTISTS)
+
+        def cli_runs():
+            out = {"train": diff_cli.main(
+                ["train", "--num_epochs", str(DIFF_EPOCHS), "--batch_size", str(DIFF_CLI_BATCH),
+                 "--archive_dir", ws["archive"], "--cache_dir", ws["cache"], "--out", npz,
+                 *common])}
+            for flags, name in ((["--ddim_steps", str(DIFF_DDIM_STEPS), "--guidance_scale",
+                                  "1.0"], "ddim_guided"),
+                                (["--dpmpp_steps", str(DIFF_DPMPP_STEPS)], "dpmpp")):
+                out[name] = diff_cli.main(
+                    ["sample", "--model", npz, "--artist", artist, "--num_samples", "4",
+                     "--classifier_path", clf_path, "--out",
+                     os.path.join(tmp, "figs", f"{name}.png"), *flags, *common])
+            out["eval"] = diff_cli.main(
+                ["eval", "--model", npz, "--artist", artist, "--num_samples", str(cli_samples),
+                 "--classifier_path", clf_path, "--archive_dir", ws["archive"], "--cache_dir",
+                 ws["cache"], *common])
+            return out
+
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli, cli_s, launches["diffusion_cli"] = counted(cli_runs)
+        import cv2
+
+        with open(npz + ".labels.json") as fh:
+            names = json.load(fh)["names"]
+        require(names == [a.replace(" ", "_") for a, _ in DIFF_CLI_ARTISTS],
+                f"diffusion CLI: label space {names}")
+        grids = {k: cv2.imread(cli[k]) for k in ("ddim_guided", "dpmpp")}
+        shapes = [None if v is None else v.shape for v in grids.values()]
+        require(shapes == [(size, 4 * size, 3)] * len(grids), f"diffusion CLI: grids {shapes}")
+        require(bool(np.isfinite(cli["eval"])) and cli["eval"] >= 0.0,
+                f"diffusion CLI: CFID {cli['eval']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("diffusion_cli", paintings=n_paint, epochs=DIFF_EPOCHS, batch=DIFF_CLI_BATCH,
+         eval_samples=cli_samples, cfid=cli["eval"], secs=cli_s,
+         stdout=printed.getvalue().strip().splitlines(), card=smi)
+
+    # The CFID quality curve, at the committed JAX artifact's config, on the port.
+    real, real_labels = synthetic_paintings(CURVE_REAL, 0)
+    held_out, _ = synthetic_paintings(CURVE_REAL, 100)
+    feats = copy_to(init_classifier(torch.Generator().manual_seed(7)), device)  # fixed, random
+    (cmodel, cdiff, closses), curve_train_s, launches["diffusion_curve_train"] = counted(
+        lambda: train_diffusion(real, real_labels, num_classes=CURVE_CLASSES,
+                                num_timesteps=curve_T, num_epochs=curve_epochs,
+                                batch_size=CURVE_BATCH, lr=CURVE_LR, seed=0,
+                                base_channels=CURVE_BASE, schedule="cosine", wordy=False,
+                                device=device))
+    floor = cfid(feats, real, held_out, device=device)
+    cy = [i % CURVE_CLASSES for i in range(CURVE_GEN)]
+    curve, curve_launches = {}, {"k1": 0, "k2": 0}
+    for cfg in CURVE_CONFIGS:
+        name, steps = cfg.split("-")
+        skw = {} if name == "ddpm" else {"steps": int(steps)}
+        out, secs, n = counted(lambda: samplers[name](
+            cmodel, cdiff, torch.Generator().manual_seed(42), cy,
+            shape=(CURVE_SIZE, CURVE_SIZE), device=device, **skw))
+        curve[cfg] = {"cfid": cfid(feats, real, out.cpu().numpy(), device=device),
+                      "sample_secs": secs}
+        curve_launches = {k: curve_launches[k] + n[k] for k in curve_launches}
+    launches["diffusion_curve_sample"] = curve_launches
+    failed = cfid_curve_orderings({k: v["cfid"] for k, v in curve.items()})
+    emit("diffusion_curve", size=CURVE_SIZE, classes=CURVE_CLASSES, n_real=CURVE_REAL,
+         n_gen=CURVE_GEN, epochs=curve_epochs, base=CURVE_BASE, schedule="cosine",
+         T=cdiff.num_timesteps, train_secs=curve_train_s, epoch_losses=[closses[0], closses[-1]],
+         real_vs_real_floor=floor, curve=curve, orderings_failed=failed, card=smi)
+    require(not failed or not on_card, f"diffusion: CFID curve orderings fail: {failed}")
+    for path, n in launches.items():
+        require(n == {"k1": 0, "k2": 0}, f"diffusion: {path} made {n} K1/K2 launches")
+    emit("diffusion", launches=launches)
+    return {"k1_launches": {k: v["k1"] for k, v in launches.items()},
+            "k2_launches": {k: v["k2"] for k, v in launches.items()}}
 
 
 def copy_to(module: torch.nn.Module, device: str) -> torch.nn.Module:
@@ -3218,6 +3807,9 @@ def main(argv=None) -> int:
     launches.update(serve["k1_launches"])
     par = phase_parallel(peaks)
     launches.update(par["k1_launches"])
+    rows = phase_kernel_rows(peaks, smi)
+    diff = phase_diffusion(peaks, smi)
+    launches.update(diff["k1_launches"])
     if args.profile:
         phase_profile()
     print(smi, flush=True)
@@ -3258,15 +3850,20 @@ def main(argv=None) -> int:
                         "train() over content_file_stream; train_dp rank 0 of 2 ranks on one "
                         "card over gloo, 'cycle' at 224x224, global B=4, one epoch (4 for the "
                         "targets, 4 a step on the rank's 2 images), train_dp_int8 the same "
-                        "with quantize_loss and QAT trunk (4 for the targets, 2 a step)",
+                        "with quantize_loss and QAT trunk (4 for the targets, 2 a step); "
+                        "the diffusion_* paths (guided DDIM, training, the samplers, the CLI, "
+                        "the CFID curve's training and sampling) compute no Gram: 0",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
                      "N=1, f32); ms warm by CUDA events, device_ms cold-L2 by the profiler; "
                      f"train_taps the same over one train step ({TRAIN_SIZE}x{TRAIN_SIZE}, "
                      f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16, int8_train_taps_bf16 "
-                     "over relu1_2 and relu2_2 in bf16 (the taps of an int8 training step)",
+                     "over relu1_2 and relu2_2 in bf16 (the taps of an int8 training step), "
+                     f"train_dp_taps over the taps of a DP 'cycle' rank's step "
+                     f"({TRAIN_SIZE}x{TRAIN_SIZE}, N=2, f32)",
         "train_taps": gram["train_taps"],
         "train_taps_bf16": gram["train_taps_bf16"],
         "int8_train_taps_bf16": gram["int8_train_taps_bf16"],
+        "train_dp_taps": rows["k1_train_dp"],
         "peaks": variant,
     }, {
         "name": "qconv_i8",
@@ -3275,7 +3872,7 @@ def main(argv=None) -> int:
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
         "launches_by_path": {**int8["launches"], **int8_train["launches"],
-                             **serve["launches"], **par["k2_launches"]},
+                             **serve["launches"], **par["k2_launches"], **diff["k2_launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
@@ -3305,7 +3902,8 @@ def main(argv=None) -> int:
                         "one 1024x1024 B=4 eval batch's 2 images (68); train_dp_int8 rank 0 "
                         "of DP 'cycle' training at 224x224, global B=4, one epoch, with "
                         "quantize_loss and QAT trunk (4 steps x 38 + 6, the single "
-                        "process's count)",
+                        "process's count); the diffusion_* paths run the f32 ResNet-50 and "
+                        "no int8 conv: 0",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
                      "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
@@ -3319,10 +3917,12 @@ def main(argv=None) -> int:
                      "paths holds each path's sums (train_*: one step of the int8 training "
                      "nets, forward and dgrad launches apart; stylize_spatial_int8_band both "
                      "ranks' launches at the row-band shapes of a 512x512 image over 2 "
-                     "ranks), dgrad the sums over the train_*_dgrad paths, and each qconv "
-                     "line its shape's plan",
+                     "ranks), dgrad the sums over the train_*_dgrad paths, kernel_rows the sums "
+                     "of phase kernel_rows' paths (warm events only), and each qconv line "
+                     "its shape's plan",
         "paths": paths,
         "dgrad": dgrad,
+        "kernel_rows": rows["k2"],
         "peaks": variant,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
