@@ -20,10 +20,12 @@ here both forms are one autograd function, whose recomputed mask equals
 relu's own in f32, so the fold costs nothing in parity. The network runs in
 ``channels_last`` and is differentiable.
 
-``forward_rows`` runs the same net (inference only) on one band of an image's rows
-while the other ranks of a mesh run the others (:mod:`parallel.spatial`: halo rows
-fetched before each conv, instance-norm statistics over the whole image);
-``forward`` is untouched by it.
+``forward_rows`` runs the same net on one band of an image's rows while the other
+ranks of a mesh run the others (:mod:`parallel.spatial`: halo rows fetched before
+each conv, instance-norm statistics over the whole image), differentiable: each
+rank's weight gradients are the part from its rows, and their sum over the ranks
+is the whole image's. ``forward`` is untouched by it; :class:`RowsForward` makes it a
+module's forward for ``torch.func.functional_call``.
 """
 
 from __future__ import annotations
@@ -184,6 +186,20 @@ class TransformerNet(nn.Module):
             x, rows = self.DeconvBlock[i].forward_rows(x, rows, relu=True)
         x, rows = self.DeconvBlock[-1].forward_rows(x, rows)
         return x.permute(0, 2, 3, 1), rows
+
+
+class RowsForward(nn.Module):
+    """``model.forward_rows`` as a module's forward, with the model's own children, so
+    that its parameters keep their names and ``torch.func.functional_call`` drives it
+    with the model's parameter dict."""
+
+    def __init__(self, model: TransformerNet):
+        super().__init__()
+        for name, child in model.named_children():
+            self.add_module(name, child)
+
+    def forward(self, x_nhwc: torch.Tensor, rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        return TransformerNet.forward_rows(self, x_nhwc, rows)
 
 
 def init_transformer(

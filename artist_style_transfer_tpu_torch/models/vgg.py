@@ -15,6 +15,11 @@ kernel K2.
 Input NHWC BGR [0,255] minus the Caffe mean (``ops.image.vgg_caffe_preprocess``).
 Inside, the stack runs in ``channels_last``, so every tap is returned as a
 contiguous NHWC view — the layout the Gram kernel reads.
+
+``VGG16Features.forward_rows`` runs the same stack on one band of an image's rows
+while the other ranks of a mesh run the others (:mod:`parallel.spatial`: the 3x3
+convs' zero-padded halo rows and the pools' straddling row pairs fetched from the
+neighbours), differentiable, for training over a 'space' axis.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from artist_style_transfer_tpu_torch.ops.qconv import conv2d_frozen_int8, quant_weight
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, conv_rows, pool_rows
 
 VGG_LAYER_NAMES = ("relu1_2", "relu2_2", "relu3_3", "relu4_3")
 
@@ -62,6 +68,33 @@ class VGG16Features(nn.Module):
             name = TAP_AFTER.get(idx)
             if name is not None:
                 tap = x.permute(0, 2, 3, 1)
+                if just_content and name == "relu2_2":
+                    return tap
+                taps[name] = tap
+        return taps
+
+    def forward_rows(
+        self, x_nhwc: torch.Tensor, rows: RowBands, just_content: bool = False
+    ) -> dict[str, tuple[torch.Tensor, RowBands]] | tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows (``rows`` says whose band is which)
+        of NHWC preprocessed images: {tap: (this rank's NHWC band of it, its
+        :class:`RowBands`)}, or relu2_2's pair alone. Every rank of ``rows.mesh`` runs it
+        at once."""
+        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        taps: dict[str, tuple[torch.Tensor, RowBands]] = {}
+        for idx, _, cout in VGG_CONVS:
+            if idx in POOL_BEFORE:
+                x, rows = pool_rows(x, rows)
+            conv = getattr(self.features, str(idx))
+
+            def run(t, w=conv.weight, b=conv.bias):  # H arrives zero-padded; W is padded here
+                return F.conv2d(t, w, b, padding=(0, 1))
+
+            x, rows = conv_rows(x, rows, 3, 1, 1, run, cout, pad_mode="zeros")
+            x = F.relu(x)
+            name = TAP_AFTER.get(idx)
+            if name is not None:
+                tap = (x.permute(0, 2, 3, 1), rows)
                 if just_content and name == "relu2_2":
                     return tap
                 taps[name] = tap

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from artist_style_transfer_tpu_torch.ops.qconv import absmax_scale, quant_i8
+from artist_style_transfer_tpu_torch.parallel.spatial import sum_over_ranks, zeros_from
 
 INT_MM_CALLS = 0  # torch._int_mm calls of the int8 Gram, forward and backward
 
@@ -80,6 +81,23 @@ def gram_matrix(features_nhwc: torch.Tensor, use_kernel: str | bool = "auto") ->
     means the kernel on every CUDA tensor (see :func:`resolve_use_kernel`).
     """
     return GramFunction.apply(features_nhwc, resolve_use_kernel(features_nhwc, use_kernel))
+
+
+def gram_matrix_rows(band_nhwc: torch.Tensor, bands, use_kernel: str | bool = "auto"
+                     ) -> torch.Tensor:
+    """The whole image's normalized Gram (N, C, C) f32 from this rank's band of rows
+    (``bands``, a :class:`parallel.spatial.RowBands`, says whose band is which): the
+    band's Gram by :func:`gram_matrix` (kernel K1 on a CUDA tensor), normalized by
+    C·h·W, scaled by h/H and summed over the ranks, the same on every rank.
+    Differentiable: the sum's backward is the identity (every rank's loss holds the
+    whole Gram), the band's is :class:`GramFunction`'s. An empty band adds zeros and
+    launches nothing."""
+    n, h, w, c = band_nhwc.shape
+    if h == 0:
+        g = zeros_from(band_nhwc, (n, c, c), torch.float32)
+    else:
+        g = gram_matrix(band_nhwc, use_kernel) * (h / bands.height)
+    return sum_over_ranks(g, bands.mesh, replicated=True)
 
 
 def _int_mm_rows(hw: int) -> int:

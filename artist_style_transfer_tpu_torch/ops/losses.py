@@ -9,7 +9,12 @@ from __future__ import annotations
 import torch
 
 from artist_style_transfer_tpu_torch.models.vgg import VGG_LAYER_NAMES
-from artist_style_transfer_tpu_torch.ops.gram import gram_matrix, gram_matrix_int8
+from artist_style_transfer_tpu_torch.ops.gram import (
+    gram_matrix,
+    gram_matrix_int8,
+    gram_matrix_rows,
+)
+from artist_style_transfer_tpu_torch.parallel.spatial import row_sum
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,6 +55,33 @@ def style_loss_gram(
         else:
             g = gram_matrix(feats, use_kernel=use_kernel)
         term = mse(g, target_grams[name])
+        loss = term if loss is None else loss + term
+    return loss
+
+
+def content_loss_rows(gen_band: torch.Tensor, content_band: torch.Tensor, bands) -> torch.Tensor:
+    """:func:`content_loss` from this rank's bands of rows (``bands``, the
+    :class:`parallel.spatial.RowBands` of both, NHWC): the band's sum of squares,
+    summed over the ranks, over the whole tensor's element count; the same on every
+    rank."""
+    n, _, w, c = gen_band.shape
+    return row_sum((gen_band - content_band).float().square(), bands) / float(
+        n * bands.height * w * c)
+
+
+def style_loss_gram_rows(
+    gen_features: dict[str, tuple[torch.Tensor, object]],
+    target_grams: dict[str, torch.Tensor],
+    use_kernel: str | bool = "auto",
+) -> torch.Tensor:
+    """:func:`style_loss_gram` from this rank's bands of the four taps ({tap: (NHWC
+    band, its :class:`parallel.spatial.RowBands`)}, as
+    ``VGG16Features.forward_rows`` gives them): each tap's Gram by
+    :func:`ops.gram.gram_matrix_rows`, the same on every rank."""
+    loss = None
+    for name in VGG_LAYER_NAMES:
+        band, bands = gen_features[name]
+        term = mse(gram_matrix_rows(band, bands, use_kernel=use_kernel), target_grams[name])
         loss = term if loss is None else loss + term
     return loss
 

@@ -7,8 +7,14 @@ the group's backend: NCCL on the card, gloo where the caller names it (the CPU t
 and two ranks sharing one card, which NCCL refuses). Collectives go through the
 mesh's methods, which skip nothing: a mesh over a process group runs every
 collective, a world of one included; only a mesh made where no process group was
-initialized (one process, no launcher) has no group, and its collectives are the
-identity.
+initialized (one process, no launcher), and a one-rank line of a mesh of several
+axes, have no group, and their collectives are the identity.
+
+The ranks lie row-major over ``shape``, as JAX's ``make_mesh`` reshapes its devices:
+on a ('data', 'space') mesh of shape (d, s) rank ``i_data * s + i_space``.
+:meth:`Mesh.axis_mesh` is the mesh of the ranks that share this rank's coordinates
+on every other axis, whose collectives run over that one axis; ``make_mesh`` creates
+every such group on every rank, in one order (``dist.new_group`` is collective).
 
 JAX's ``batch_sharding`` and ``replicated_sharding`` describe where GSPMD places the
 shards of one logical array. A torch tensor lives whole on one device of one
@@ -40,6 +46,8 @@ class Mesh:
     rank: int  # this process's rank in the group
     device: torch.device  # this rank's device
     backend: str | None  # "nccl", "gloo", or None without a group
+    # {axis: the one-axis mesh of this rank's line along it}, for a mesh of several axes
+    lines: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:
@@ -48,6 +56,24 @@ class Mesh:
     def axis_size(self, axis: str) -> int:
         """Ranks on ``axis``; 1 when the mesh has no such axis."""
         return self.shape[self.axis_names.index(axis)] if axis in self.axis_names else 1
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (row-major over ``shape``); 0 without it."""
+        if axis not in self.axis_names:
+            return 0
+        i = self.axis_names.index(axis)
+        return self.rank // math.prod(self.shape[i + 1:]) % self.shape[i]
+
+    def axis_mesh(self, axis: str) -> Mesh:
+        """The ranks that share this rank's coordinates on every axis but ``axis``, as a
+        one-axis mesh whose collectives run over ``axis`` alone: the mesh itself when it
+        has that one axis, a mesh of this rank alone when ``axis`` is absent or 1 long."""
+        if self.axis_names == (axis,):
+            return self
+        if self.axis_size(axis) == 1:
+            return Mesh(None, (axis,), (1,), 0, self.device, None)
+        require_ranks(self)
+        return self.lines[axis]
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or max, ``op="max"``) ``t`` over the ranks, in place; returns ``t``."""
@@ -117,15 +143,55 @@ def make_mesh(
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    group, backend = None, None
+    group, backend, lines = None, None, {}
     if dist.is_initialized():
         group = dist.group.WORLD if ranks == list(range(world)) else dist.new_group(ranks)
+        lines = _axis_lines(shape, axis_names, ranks, me, group, dev)
         if me not in ranks:
             raise ValueError(f"rank {me} is not one of the mesh's ranks {ranks}")
         backend = dist.get_backend(group)
         if backend == "nccl" and dev.type != "cuda":
             raise ValueError(f"an NCCL mesh runs on CUDA devices, not on {dev}")
-    return Mesh(group, tuple(axis_names), shape, ranks.index(me), dev, backend)
+    return Mesh(group, tuple(axis_names), shape, ranks.index(me), dev, backend, lines)
+
+
+def _axis_lines(shape: tuple[int, ...], axis_names: tuple[str, ...], ranks: list[int],
+                me: int, group, dev: torch.device) -> dict[str, Mesh]:
+    """{axis: the one-axis mesh of ``me``'s line along it} for a mesh of several axes.
+
+    Every rank of the world creates the group of every line of more than one rank and
+    fewer than all, axis by axis, lines in row-major order, so the collective
+    ``new_group`` calls pair up; a line of all the mesh's ranks takes ``group``."""
+    if len(shape) < 2:
+        return {}
+    n = math.prod(shape)
+    lines = {}
+    for i, axis in enumerate(axis_names):
+        stride = math.prod(shape[i + 1:])
+        for first in range(n):
+            if first // stride % shape[i]:
+                continue  # not the first rank of its line
+            line = [ranks[first + k * stride] for k in range(shape[i])]
+            if shape[i] == 1:
+                g = None
+            else:
+                g = group if shape[i] == n else dist.new_group(line)
+            if me in line:
+                lines[axis] = Mesh(g, (axis,), (shape[i],), line.index(me), dev,
+                                   None if g is None else dist.get_backend(g))
+    return lines
+
+
+def require_ranks(mesh: Mesh | None) -> Mesh | None:
+    """``mesh``, when its process group holds the ranks its shape needs; else
+    ``ValueError`` (a shape over a smaller group would make every collective the
+    identity on ranks that do not exist)."""
+    if mesh is not None:
+        have = 1 if mesh.group is None else dist.get_world_size(mesh.group)
+        if mesh.size > have:
+            raise ValueError(f"mesh shape {mesh.shape} needs {mesh.size} ranks; its process "
+                             f"group holds {have}")
+    return mesh
 
 
 def spatial_size(mesh: Mesh | None, axis: str = "space") -> int:
@@ -134,24 +200,45 @@ def spatial_size(mesh: Mesh | None, axis: str = "space") -> int:
 
 
 def shard_batch(x, mesh: Mesh | None):
-    """This rank's equal slice of axis 0 of ``x`` (a tensor or an array); ``x`` as it
-    is when ``mesh`` is None. The mesh's size must divide the batch."""
+    """This rank's equal slice of axis 0 of ``x`` (a tensor or an array), by its
+    coordinate on every axis but 'space' (whose ranks share one slice, JAX's
+    ``P("data", "space")``); ``x`` as it is when ``mesh`` is None. The slices must
+    divide the batch."""
     if mesh is None:
         return x
-    n = mesh.size
+    s = spatial_size(mesh)
+    n = mesh.size // s
     if x.shape[0] % n:
         raise ValueError(f"batch of {x.shape[0]} does not divide over the {n}-rank mesh")
     b = x.shape[0] // n
-    return x[mesh.rank * b : (mesh.rank + 1) * b]
+    i = 0  # this rank's slice: its row-major coordinates on every axis but 'space'
+    for axis, size in zip(mesh.axis_names, mesh.shape):
+        if axis != "space":
+            i = i * size + mesh.coord(axis)
+    return x[i * b : (i + 1) * b]
+
+
+def train_mesh(mesh: Mesh | None) -> Mesh | None:
+    """``mesh`` for the style-transfer trainer, which shards batches over 'data' and
+    image rows over 'space': a mesh with another axis larger than 1 raises
+    ``NotImplementedError``, one whose shape exceeds its process group ``ValueError``."""
+    if mesh is not None and any(s > 1 for a, s in zip(mesh.axis_names, mesh.shape)
+                                if a not in ("data", "space")):
+        raise NotImplementedError(
+            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: the trainer "
+            "shards over 'data' and 'space' alone")
+    return require_ranks(mesh)
 
 
 def data_parallel(mesh: Mesh | None) -> Mesh | None:
     """``mesh`` for a data-parallel path, which shards batches over every rank:
-    a mesh with an axis other than 'data' larger than 1 raises ``NotImplementedError``."""
+    a mesh with an axis other than 'data' larger than 1 raises ``NotImplementedError``,
+    one whose shape exceeds its process group ``ValueError``."""
     if mesh is not None and any(s > 1 for a, s in zip(mesh.axis_names, mesh.shape)
                                 if a != "data"):
         raise NotImplementedError(
-            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: training and "
-            "evaluation over an axis other than 'data' (a 'space' axis of image rows) come "
-            "with ROADMAP Queue 1 item 12b; use a 'data' mesh")
-    return mesh
+            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: evaluation, "
+            "stylization, artist-classifier and diffusion training over an axis other "
+            "than 'data' (a 'space' axis of image rows) come with ROADMAP Queue 1 item "
+            "12d; use a 'data' mesh")
+    return require_ranks(mesh)

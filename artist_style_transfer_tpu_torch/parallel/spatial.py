@@ -1,6 +1,9 @@
 """One image's rows spread over a mesh's ranks: the halo exchanges and the statistics
 that ``stylize_spatial`` and ``stylize_spatial_int8`` need (the port of what GSPMD
-inserts for JAX's ``P(None, "data")`` sharding, ``infer/stylize.py:122-197``).
+inserts for JAX's ``P(None, "data")`` sharding, ``infer/stylize.py:122-197``), and
+their backward, for training over a ('data', 'space') mesh (JAX's
+``P("data", "space")``, ``parallel/mesh.py:41-48``), where the mesh here is the
+'space' line of the training mesh.
 
 :class:`RowBands` says which rows of a tensor of global height ``height`` each
 rank holds: rank r holds rows ``[starts[r], starts[r+1])``, the rows split as
@@ -17,13 +20,27 @@ none), then runs the caller's conv on the gathered rows:
 - a reflect-padded conv gathers exactly the rows each output row reads, with the
   reflection applied at the image's top and bottom only, and the caller pads W
   alone;
+- a zero-padded conv (the VGG16's) gathers the same rows, with rows of zeros
+  for the pad at the image's top and bottom;
 - a zero-padded transpose conv (lhs-dilated) runs on its band plus the input rows
   its output rows reach, with the single-device pads, and the output rows that
-  belong to this rank are cropped out.
+  belong to this rank are cropped out;
+- a 2x2 max pool (:func:`pool_rows`) gathers the row pairs of its output band.
 
-:func:`row_mean` all-reduces per-image, per-channel sums over every rank's own
-rows (halo rows never count), for the instance norms. Every collective is the
-mesh's; the same code runs over NCCL and gloo.
+:func:`row_mean` and :func:`instance_norm_rows` all-reduce per-image, per-channel
+sums over every rank's own rows (halo rows never count); :func:`row_sum` sums a
+loss's terms over the bands. Every collective is the mesh's; the same code runs over
+NCCL and gloo.
+
+Each of them is differentiable, and the backward of a collective depends on who
+consumes its result: a fetched halo row's cotangent goes back to its owner (one
+``all_gather`` of every rank's strip cotangents) and is added there; a statistic each
+rank consumes for its own band (the instance norm's sums) has its cotangent summed
+over the ranks; a sum every rank consumes whole (a loss) passes its cotangent through
+unchanged, since each rank's backward already carries the whole loss's. So each
+rank's parameter gradient is the part from its own rows, and their sum over the
+ranks is the whole image's. A rank whose band is empty still runs every node the
+others run (:func:`zeros_from`), so the ranks' backward collectives pair up.
 """
 
 from __future__ import annotations
@@ -32,6 +49,8 @@ import bisect
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from artist_style_transfer_tpu_torch.parallel.mesh import Mesh
 
@@ -72,67 +91,131 @@ def _reflect(j: int, n: int) -> int:
     return j
 
 
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows`: the forward's one ``all_gather`` of boundary strips; the
+    backward sends each fetched row's cotangent back to the rank that owns it, by one
+    ``all_gather`` of every rank's strip cotangents, and adds it there."""
+
+    @staticmethod
+    def forward(ctx, x, bands: RowBands, need: list[list[int]]):
+        mesh, me = bands.mesh, bands.mesh.rank
+        a, b = bands.bounds()
+        halo = 0
+        for r, rows in enumerate(need):
+            if rows:
+                ar, br = bands.bounds(r)
+                halo = max(halo, ar - min((j for j in rows if j >= 0), default=ar),
+                           max(rows) - (br - 1))
+        n, c, h, w = x.shape
+        m = min(halo, h)
+        parts = [x]
+        if halo > 0:
+            strip = x.new_zeros((n, c, 2 * halo, w))
+            strip[:, :, :m] = x[:, :, :m]
+            strip[:, :, 2 * halo - m:] = x[:, :, h - m:]
+            wire = strip if strip.dtype in _WIRE_DTYPES else strip.float()
+            parts += [s.to(x.dtype) for s in mesh.all_gather(wire)]
+        zero_row = h + (mesh.size * 2 * halo if halo > 0 else 0)
+        if any(j < 0 for j in need[me]):
+            parts.append(x.new_zeros((n, c, 1, w)))
+        idx = []
+        for j in need[me]:
+            if j < 0:
+                idx.append(zero_row)
+            elif a <= j < b:
+                idx.append(j - a)
+            else:
+                q = bands.owner(j)
+                aq, bq = bands.bounds(q)
+                base = h + q * 2 * halo
+                idx.append(base + (j - aq if j - aq < halo else 2 * halo - (bq - j)))
+        src = torch.cat(parts, dim=2) if len(parts) > 1 else x
+        index = torch.as_tensor(idx, dtype=torch.long, device=x.device)
+        ctx.save_for_backward(index)
+        ctx.meta = (bands, halo, m, tuple(x.shape), x.dtype, src.shape[2])
+        return src.index_select(2, index).contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (index,) = ctx.saved_tensors
+        bands, halo, m, (n, c, h, w), dtype, rows = ctx.meta
+        mesh, me = bands.mesh, bands.mesh.rank
+        acc = torch.promote_types(dy.dtype, torch.float32)  # bf16 sums in f32, crosses as f32
+        dsrc = dy.new_zeros((n, c, rows, w), dtype=acc).index_add_(2, index, dy.to(acc))
+        dx = dsrc[:, :, :h].clone()
+        if halo > 0:
+            strips = dsrc[:, :, h: h + mesh.size * 2 * halo].contiguous()
+            mine = sum(t[:, :, me * 2 * halo: (me + 1) * 2 * halo]
+                       for t in mesh.all_gather(strips))
+            dx[:, :, :m] += mine[:, :, :m]
+            dx[:, :, h - m:] += mine[:, :, 2 * halo - m:]
+        return dx.to(dtype).contiguous(memory_format=torch.channels_last), None, None
+
+
 def gather_rows(x: torch.Tensor, bands: RowBands, need: list[list[int]]) -> torch.Tensor:
-    """Rows ``need[me]`` (global indices, in order) of the NCHW tensor whose rows ``bands``
-    spreads, from this rank's ``x`` and its neighbours' boundary strips.
+    """Rows ``need[me]`` (global indices, in order; -1 a row of zeros, a zero pad) of the
+    NCHW tensor whose rows ``bands`` spreads, from this rank's ``x`` and its neighbours'
+    boundary strips. Differentiable: each row's gradient returns to its owner.
 
     ``need`` lists every rank's rows (each rank computes all of them the same way),
     so every rank agrees on the strip height without a collective; a layer whose
-    ranks need no row of another skips the exchange.
+    ranks need no row of another skips the exchange, forward and backward.
     """
-    mesh, me = bands.mesh, bands.mesh.rank
-    a, b = bands.bounds()
-    halo = 0
-    for r, rows in enumerate(need):
-        if rows:
-            ar, br = bands.bounds(r)
-            halo = max(halo, ar - min(rows), max(rows) - (br - 1))
-    idx = []
-    parts = [x]
-    if halo > 0:
-        n, c, h, w = x.shape
-        m = min(halo, h)
-        strip = x.new_zeros((n, c, 2 * halo, w))
-        strip[:, :, :m] = x[:, :, :m]
-        strip[:, :, 2 * halo - m:] = x[:, :, h - m:]
-        wire = strip if strip.dtype in _WIRE_DTYPES else strip.float()
-        parts += [s.to(x.dtype) for s in mesh.all_gather(wire)]
-    for j in need[me]:
-        if a <= j < b:
-            idx.append(j - a)
-            continue
-        q = bands.owner(j)
-        aq, bq = bands.bounds(q)
-        base = (b - a) + q * 2 * halo
-        idx.append(base + (j - aq if j - aq < halo else 2 * halo - (bq - j)))
-    src = torch.cat(parts, dim=2) if len(parts) > 1 else x
-    out = src.index_select(2, torch.as_tensor(idx, dtype=torch.long, device=x.device))
-    return out.contiguous(memory_format=torch.channels_last)
+    return _GatherRows.apply(x, bands, need)
 
 
-def _empty(x: torch.Tensor, cout: int, w_out: int, dtype: torch.dtype | None = None):
-    return x.new_empty((x.shape[0], cout, 0, w_out), dtype=dtype or x.dtype).contiguous(
-        memory_format=torch.channels_last)
+class _ZerosFrom(torch.autograd.Function):
+    """A tensor of zeros that autograd reaches through ``src``, whose gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, src, shape, dtype):
+        ctx.meta = (src.shape, src.dtype)
+        return src.new_zeros(shape, dtype=dtype).contiguous(
+            memory_format=torch.channels_last if len(shape) == 4 else torch.contiguous_format)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        shape, dtype = ctx.meta
+        return g.new_zeros(shape, dtype=dtype), None, None
+
+
+def zeros_from(src: torch.Tensor, shape: tuple[int, ...], dtype: torch.dtype | None = None):
+    """Zeros of ``shape`` standing for what an empty band computes from ``src``: autograd
+    runs through it, so a rank's backward reaches every collective the others reach,
+    in the same order, band empty or not."""
+    return _ZerosFrom.apply(src, tuple(shape), dtype or src.dtype)
 
 
 def conv_rows(x: torch.Tensor, bands: RowBands, k: int, stride: int, pad: int, conv,
-              cout: int, out_dtype: torch.dtype | None = None):
-    """A conv of kernel ``k``, ``stride`` and reflect pad ``pad`` (both axes) over the
-    image whose rows ``bands`` spreads. ``conv(rows)`` runs it on the gathered rows
-    (the H reflection already in them; it pads W by ``pad`` itself and no H).
-    Returns this rank's output band and the output's :class:`RowBands`."""
+              cout: int, out_dtype: torch.dtype | None = None, pad_mode: str = "reflect"):
+    """A conv of kernel ``k``, ``stride`` and pad ``pad`` (both axes; ``pad_mode``
+    "reflect", the TransformerNet's, or "zeros", the VGG16's) over the image whose rows
+    ``bands`` spreads. ``conv(rows)`` runs it on the gathered rows (the H pad already in
+    them; it pads W by ``pad`` itself and no H). Returns this rank's output band and
+    the output's :class:`RowBands`."""
+    if pad_mode not in ("reflect", "zeros"):
+        raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     h_in = bands.height
     h_out = (h_in + 2 * pad - k) // stride + 1
     out = RowBands.split(bands.mesh, h_out)
+
+    def row(q: int) -> int:
+        if pad_mode == "reflect":
+            return _reflect(q, h_in)
+        return q if 0 <= q < h_in else -1
+
     need = []
     for r in range(bands.mesh.size):
         oa, ob = out.bounds(r)
-        need.append([_reflect(q - pad, h_in) for q in range(oa * stride, (ob - 1) * stride + k)]
+        need.append([row(q - pad) for q in range(oa * stride, (ob - 1) * stride + k)]
                     if ob > oa else [])
     rows = gather_rows(x, bands, need)
     oa, ob = out.bounds()
     if ob == oa:
-        return _empty(x, cout, (x.shape[3] + 2 * pad - k) // stride + 1, out_dtype), out
+        w_out = (x.shape[3] + 2 * pad - k) // stride + 1
+        return zeros_from(rows, (x.shape[0], cout, 0, w_out), out_dtype or x.dtype), out
     return conv(rows), out
 
 
@@ -159,18 +242,68 @@ def conv_transpose_rows(x: torch.Tensor, bands: RowBands, k: int, dilation: int,
     oa, ob = out.bounds()
     w_out = (x.shape[3] - 1) * d + 1 + lo + hi - k + 1
     if ob == oa:
-        return _empty(x, cout, w_out, out_dtype), out
+        return zeros_from(rows, (x.shape[0], cout, 0, w_out), out_dtype or x.dtype), out
     y = conv(rows)
     first = spans[bands.mesh.rank] * d
     return y[:, :, oa - first: ob - first], out
 
 
+def pool_rows(x: torch.Tensor, bands: RowBands) -> tuple[torch.Tensor, RowBands]:
+    """The 2x2 stride-2 max pool (floor mode) of the NCHW image whose rows ``bands``
+    spreads: the output is split anew, so a pair of rows may straddle two bands (at
+    H = 40 over 2 ranks, relu3_3's bands [0, 5) and [5, 10) pool into [0, 3) and
+    [3, 5), and rank 0 fetches row 5). Returns this rank's output band and its
+    :class:`RowBands`."""
+    out = RowBands.split(bands.mesh, bands.height // 2)
+    need = []
+    for r in range(bands.mesh.size):
+        oa, ob = out.bounds(r)
+        need.append(list(range(2 * oa, 2 * ob)))
+    rows = gather_rows(x, bands, need)
+    oa, ob = out.bounds()
+    if ob == oa:
+        return zeros_from(rows, (x.shape[0], x.shape[1], 0, x.shape[3] // 2)), out
+    return F.max_pool2d(rows, 2, 2), out
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``t`` summed over the mesh's ranks. ``replicated``: what consumes the sum is the
+    same on every rank (a loss every rank holds whole), so each rank's cotangent is the
+    whole one and the backward is the identity; else each rank consumes it for its own
+    band, and the backward sums the cotangents over the ranks too."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh, replicated: bool):
+        ctx.mesh, ctx.replicated = mesh, replicated
+        return mesh.all_reduce_(t.clone())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if ctx.replicated:
+            return g, None, None
+        return ctx.mesh.all_reduce_(g.clone()), None, None
+
+
+def sum_over_ranks(t: torch.Tensor, mesh: Mesh, replicated: bool = False) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ranks, differentiable (:class:`_SumOverRanks`)."""
+    return _SumOverRanks.apply(t, mesh, replicated)
+
+
+def row_sum(t: torch.Tensor, bands: RowBands) -> torch.Tensor:
+    """The sum of every element of the tensor whose rows ``bands`` spreads, in f32 (f64
+    for f64): this rank's band's sum, summed over the ranks, for a loss every rank then
+    holds whole (the backward is the identity on each rank's band)."""
+    return sum_over_ranks(t.to(torch.promote_types(t.dtype, torch.float32)).sum(),
+                          bands.mesh, replicated=True)
+
+
 def row_mean(t: torch.Tensor, bands: RowBands) -> torch.Tensor:
     """Per-image, per-channel mean over H and W of the NCHW image whose rows ``bands``
     spreads: this rank's sums over its own rows, all-reduced, over the global count.
-    Shape (N, C, 1, 1), in ``t``'s dtype."""
-    s = t.sum(dim=(2, 3))
-    bands.mesh.all_reduce_(s)
+    Shape (N, C, 1, 1), in ``t``'s dtype; differentiable, its backward all-reduces the
+    cotangent over the ranks (each rank's band consumes the mean)."""
+    s = sum_over_ranks(t.sum(dim=(2, 3)), bands.mesh)
     return (s / float(bands.height * t.shape[3]))[:, :, None, None]
 
 
@@ -188,24 +321,62 @@ def all_rows(y: torch.Tensor, bands: RowBands, dim: int) -> torch.Tensor:
                       for r, p in enumerate(parts)], dim=dim)
 
 
+class _InstanceNormRows(torch.autograd.Function):
+    """:func:`ops.norm.instance_norm_act` over a band, with the whole image's statistics:
+    the forward all-reduces the per-image, per-channel sums (the mean, then the centred
+    squares under ``"highest"``; the sums of x and x^2 otherwise), the backward the two
+    channel sums of its input gradient (of g and of g * x-hat). gamma and beta get this
+    rank's part of their gradient, which the trainer's gradient sum completes."""
+
+    @staticmethod
+    def forward(ctx, x, bands: RowBands, scale, bias, relu: bool, eps: float):
+        from artist_style_transfer_tpu_torch.ops.norm import _stats_dtype
+        from artist_style_transfer_tpu_torch.ops.precision import get_precision
+
+        mesh, c = bands.mesh, x.shape[1]
+        count = float(bands.height * x.shape[3])
+        x32 = x.to(_stats_dtype(x))
+        def mean_of(t):  # the whole image's per-image, per-channel mean
+            return (mesh.all_reduce_(t.sum(dim=(2, 3))) / count)[:, :, None, None]
+
+        if get_precision() == "highest":
+            mean = mean_of(x32)
+            var = mean_of((x32 - mean).square())
+        else:
+            both = mean_of(torch.cat([x32, x32.square()], dim=1))
+            mean, m2 = both[:, :c], both[:, c:]
+            var = (m2 - mean.square()).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        y = ((x32 - mean) * inv).to(x.dtype) * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
+        ctx.save_for_backward(x, mean, inv, scale, bias)
+        ctx.bands, ctx.relu, ctx.count = bands, relu, count
+        return torch.relu(y) if relu else y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, mean, inv, scale, bias = ctx.saved_tensors
+        acc, c = mean.dtype, x.shape[1]
+        xhat = (x.to(acc) - mean) * inv
+        dya = dy.to(acc)
+        if ctx.relu:
+            pre = xhat * scale.to(acc).view(1, -1, 1, 1) + bias.to(acc).view(1, -1, 1, 1)
+            dya = torch.where(pre > 0, dya, 0.0)
+        dgamma = (dya * xhat).sum(dim=(0, 2, 3)).to(scale.dtype)
+        dbeta = dya.sum(dim=(0, 2, 3)).to(bias.dtype)
+        g = dya * scale.to(acc).view(1, -1, 1, 1)
+        sums = torch.cat([g.sum(dim=(2, 3)), (g * xhat).sum(dim=(2, 3))], dim=1)
+        m = ctx.bands.mesh.all_reduce_(sums) / ctx.count
+        dx = (inv * (g - m[:, :c, None, None] - xhat * m[:, c:, None, None])).to(x.dtype)
+        return (dx.contiguous(memory_format=torch.channels_last), None, dgamma, dbeta,
+                None, None)
+
+
 def instance_norm_rows(x: torch.Tensor, bands: RowBands, scale: torch.Tensor,
                        bias: torch.Tensor, relu: bool, eps: float) -> torch.Tensor:
-    """The forward of :func:`ops.norm.instance_norm_act` over the image whose rows
-    ``bands`` spreads, with the statistics of the whole image: its arithmetic (f32
-    statistics; the two-pass variance under ``"highest"``, the one-pass one
-    otherwise), each mean all-reduced over every rank's own rows."""
-    from artist_style_transfer_tpu_torch.ops.norm import _stats_dtype
-    from artist_style_transfer_tpu_torch.ops.precision import get_precision
-
-    x32 = x.to(_stats_dtype(x))
-    if get_precision() == "highest":
-        mean = row_mean(x32, bands)
-        var = row_mean((x32 - mean).square(), bands)
-    else:
-        c = x.shape[1]
-        both = row_mean(torch.cat([x32, x32.square()], dim=1), bands)
-        mean, m2 = both[:, :c], both[:, c:]
-        var = (m2 - mean.square()).clamp_min(0.0)
-    inv = torch.rsqrt(var + eps)
-    y = ((x32 - mean) * inv).to(x.dtype) * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
-    return torch.relu(y) if relu else y
+    """:func:`ops.norm.instance_norm_act` over the image whose rows ``bands`` spreads,
+    with the statistics of the whole image: its arithmetic (f32 statistics; the
+    two-pass variance under ``"highest"``, the one-pass one otherwise), each sum
+    all-reduced over every rank's own rows, forward and backward
+    (:class:`_InstanceNormRows`)."""
+    return _InstanceNormRows.apply(x, bands, scale, bias, relu, eps)

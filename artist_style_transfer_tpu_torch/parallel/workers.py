@@ -119,23 +119,87 @@ def params_numpy(model: torch.nn.Module) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
 
 
+@contextlib.contextmanager
+def recorded_k1():
+    """Inside, every launch of kernel K1 (:func:`ops.cuda.gram_kernel.gram_matrix_cuda`)
+    counts under its input's (shape, dtype) in the dict this yields."""
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+
+    real, seen = gram_kernel.gram_matrix_cuda, {}
+
+    def recording(f, *args, **kwargs):
+        key = (tuple(f.shape), str(f.dtype).replace("torch.", ""))
+        seen[key] = seen.get(key, 0) + 1
+        return real(f, *args, **kwargs)
+
+    gram_kernel.gram_matrix_cuda = recording
+    try:
+        yield seen
+    finally:
+        gram_kernel.gram_matrix_cuda = real
+
+
+def space_mesh(mesh: Mesh, shape: tuple[int, int]) -> Mesh:
+    """A ('data', 'space') mesh of ``shape`` over ``mesh``'s process group (every rank
+    calls it: it creates the axes' groups)."""
+    from artist_style_transfer_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(tuple(shape), ("data", "space"), device=mesh.device)
+
+
+class ArrayStream:
+    """A ``train(content_stream=...)`` callable over an in-memory corpus: each epoch's
+    global batches in the resident order (:func:`train.loop.epoch_permutation`), each
+    process yielding its equal slice of every batch (the process group's world size
+    and rank, as ``content_file_stream``, which also drops a ragged final batch the
+    processes do not divide), so a streamed run sees the resident one's images."""
+
+    def __init__(self, content: np.ndarray, batch_size: int, seed: int):
+        self.content, self.batch_size, self.seed = content, batch_size, seed
+
+    def __call__(self, epoch: int):
+        import torch.distributed as dist
+
+        from artist_style_transfer_tpu_torch.train.loop import epoch_permutation
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        me = dist.get_rank() if dist.is_initialized() else 0
+        n, b = len(self.content), self.batch_size
+        perm = epoch_permutation(self.seed, epoch, n).numpy()
+        for s in range(0, n, b):
+            idx = perm[s: s + b]
+            if len(idx) % world:
+                continue
+            per = len(idx) // world
+            yield self.content[idx[me * per: (me + 1) * per]]
+
+
 def train_rank(mesh: Mesh, kwargs: dict, stream: dict | None = None,
-               profile: bool = False, record_scales: bool = False) -> dict:
+               profile: bool = False, record_scales: bool = False,
+               shape: tuple[int, int] | None = None, record_k1: bool = False) -> dict:
     """``train(mesh=mesh, **kwargs)`` on this rank: its per-epoch losses, the trained
     params, the files rank 0 wrote under ``model_dir`` and the time and launches.
     ``stream``: the arguments of a ``content_file_stream`` made on the rank, which
     takes its slice of every batch from the process group. ``record_scales``: also
-    every dynamic int8 scale the run took (:func:`recorded_scales`), under "scales"."""
+    every dynamic int8 scale the run took (:func:`recorded_scales`), under "scales".
+    ``shape``: train over a ('data', 'space') mesh of that shape (:func:`space_mesh`)
+    instead. ``record_k1``: also K1's launches by input shape (:func:`recorded_k1`),
+    under "k1_shapes", as (shape, dtype, count)."""
     from artist_style_transfer_tpu_torch.data.stream import content_file_stream
     from artist_style_transfer_tpu_torch.train import train
 
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
     if stream is not None:
         kwargs = dict(kwargs, content_stream=content_file_stream(**stream))
-    with recorded_scales() if record_scales else contextlib.nullcontext([]) as scales:
+    with (recorded_scales() if record_scales else contextlib.nullcontext([]) as scales,
+          recorded_k1() if record_k1 else contextlib.nullcontext({}) as k1):
         (model, losses), stats = _timed(
             mesh, lambda: train(mesh=mesh, device=mesh.device, **kwargs), profile)
     if record_scales:
         stats["scales"] = np.asarray(scales)
+    if record_k1:
+        stats["k1_shapes"] = [(s, d, n) for (s, d), n in k1.items()]
     files = []
     if kwargs.get("model_dir"):
         for root, _, names in os.walk(kwargs["model_dir"]):
@@ -187,6 +251,47 @@ def step_trajectory(mesh: Mesh, setup: dict) -> dict:
              for v in s.values() if torch.is_tensor(v)]
     return {"losses": np.concatenate(losses).astype(np.float64),
             "params": params_numpy(model), "adam": np.concatenate(state)}
+
+
+def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict) -> dict:
+    """One 'cycle' step of the global batch ``setup["content"]`` over a ('data',
+    'space') mesh of ``shape`` (None: one process, no mesh, on the rank's device;
+    ``setup``: ``model``, ``vgg``, ``paintings``, ``content``, ``batch_size``,
+    ``content_weight``, ``style_weight``, ``step``), f32: the
+    synced [content, style, total] losses and every parameter's synced gradient, as
+    numpy (Adam with no weight decay, which leaves ``.grad`` as the sync made it). On
+    CUDA also ``peak_mem_gib``: the step's peak of allocated memory above what was
+    allocated before it (the targets and the content features are built first)."""
+    from artist_style_transfer_tpu_torch.train import loop, styles
+
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
+    dev = mesh.device
+    model = copy.deepcopy(setup["model"]).to(dev)
+    vgg = _on(setup["vgg"], dev)
+    content = torch.as_tensor(setup["content"]).to(dev)
+    b = setup["batch_size"]
+    targets = styles.build_style_targets("cycle", vgg, "X", paintings=setup["paintings"],
+                                         batch_size=b)
+    opt, sched = loop.make_optimizer(model.parameters(), 0.0, 0.0, 1, 1, 1)
+    fns = loop.make_step_fns("cycle", model, vgg, targets, opt, sched,
+                             content_weight=setup["content_weight"],
+                             style_weight=setup["style_weight"], batch_size=b,
+                             num_content=content.shape[0],
+                             mesh=None if shape is None else mesh)
+    r22 = loop.precompute_content_relu2_2(vgg, content)
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses = fns.step_fn(content, r22, setup["step"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    return {"losses": losses.cpu().numpy().astype(np.float64),
+            "grads": {k: p.grad.detach().cpu().numpy().copy()
+                      for k, p in model.named_parameters()}, **out}
 
 
 def train_classifier_rank(mesh: Mesh, images: np.ndarray, labels: np.ndarray,

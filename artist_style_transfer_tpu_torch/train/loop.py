@@ -50,6 +50,23 @@ What carries over from the JAX loop, and what changes:
   math), so each rank's shard runs the direct path, as JAX's ``shard_map`` folds
   each device's shard.
 
+- A mesh with a 'space' axis (``make_mesh((d, s), ("data", "space"))``, JAX's
+  ``batch_sharding``: NHWC axis 0 over 'data', the image rows over 'space') trains the
+  four Gram modes with each image's rows spread over the 'space' ranks: each rank
+  holds a band of every activation of the TransformerNet and the VGG16
+  (``forward_rows``: halo rows fetched before each conv and pool, instance-norm
+  statistics over the whole image, :mod:`parallel.spatial`), and the Grams and the
+  content loss are summed over the bands (:func:`ops.losses.style_loss_gram_rows`,
+  :func:`ops.losses.content_loss_rows`), so every 'space' rank holds its data slice's
+  whole loss. Each rank's parameter gradient is the part from its rows: the sync sums
+  them over every rank and divides by d, the losses by d·s. A full batch shards over
+  the d data slices (a batch of one image over (1, s) is banded); the ragged tail is
+  banded when the mesh's size divides it, else it runs whole on every rank (JAX's
+  ``tail_mesh``); a streamed batch (each rank's slice of the global batch) is
+  gathered over its 'space' line into the data slice first, and its content relu2_2
+  computed banded. The 'space' path takes the f32 or bf16 nets, not the int8 ones or
+  'classifier' mode (refused by ``train()``, ROADMAP item 12c).
+
 In the Gram modes every Gram of the step goes through
 :func:`ops.losses.style_loss_gram`, which runs the Hopper Gram kernel on a
 CUDA device: four launches a step. The 'classifier' mode computes no Gram:
@@ -71,7 +88,7 @@ from torch.utils.checkpoint import checkpoint
 
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.models.resnet_q import classifier_is_quantized
-from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
+from artist_style_transfer_tpu_torch.models.transformer import RowsForward, TransformerNet
 from artist_style_transfer_tpu_torch.models.transformer_qat import QAT_LAYERS, QATForward
 from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, vgg_is_quantized
 from artist_style_transfer_tpu_torch.ops.image import (
@@ -81,10 +98,18 @@ from artist_style_transfer_tpu_torch.ops.image import (
 )
 from artist_style_transfer_tpu_torch.ops.losses import (
     content_loss,
+    content_loss_rows,
     cross_entropy_loss,
     style_loss_gram,
+    style_loss_gram_rows,
 )
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
+from artist_style_transfer_tpu_torch.parallel.mesh import (
+    Mesh,
+    shard_batch,
+    spatial_size,
+    train_mesh,
+)
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -133,7 +158,7 @@ class StepFns:
     epoch_fn: Callable
     steps_per_epoch: int
     # (batch on the device, step) -> (3,) on the device: one step of a streamed corpus
-    # (under a mesh, the batch is this rank's slice)
+    # (under a mesh, the batch is this rank's slice of the global batch)
     stream_step_fn: Callable
 
 
@@ -167,10 +192,12 @@ def make_step_fns(
     ``vgg`` and ``classifier`` may be quantized; ``qat`` (True or ``"trunk"``,
     ``"all"``) picks the int8 convs of the TransformerNet's QAT forward;
     ``quantize_gram`` (``"auto"``, True, False) the int8 Gram of the deep taps.
-    ``mesh`` makes the step data-parallel over its ranks (the module docstring); a
-    mesh with a 'space' axis larger than 1 raises ``NotImplementedError``.
+    ``mesh`` makes the step data-parallel over its ranks, and with a 'space' axis
+    spreads each image's rows over that axis's ranks (the module docstring); the
+    int8 nets and 'classifier' mode with a 'space' axis longer than 1 raise
+    ``NotImplementedError``.
     """
-    data_parallel(mesh)
+    train_mesh(mesh)
     if mode == "classifier" and (classifier is None or targets.labels is None):
         raise ValueError("'classifier' training needs a classifier and the targets' labels")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -196,6 +223,17 @@ def make_step_fns(
     int8_nets = (bool(qat), vgg_is_quantized(vgg_compute),
                  clf_compute is not None and classifier_is_quantized(clf_compute))
     num_cycle = targets.num_cycle if mode == "cycle" else 0
+    # A mesh with a 'space' axis runs the banded step (a (d, 1) one too: its bands are
+    # whole images, with no exchange), where its nets have a banded forward.
+    banded = (mesh is not None and "space" in mesh.axis_names and mode != "classifier"
+              and not any(int8_nets) and not quantize_gram)
+    if spatial_size(mesh) > 1 and not banded:
+        raise NotImplementedError(
+            "training over a 'space' axis runs the four Gram modes with the f32 or bf16 "
+            "nets; 'classifier' mode and the int8 options over 'space' come with ROADMAP "
+            "Queue 1 item 12c")
+    space = mesh.axis_mesh("space") if banded else None
+    rows_forward = RowsForward(model) if banded else None
 
     def remat_or_call(fn, *args, **kwargs):
         if remat:
@@ -227,16 +265,46 @@ def make_step_fns(
         c_loss = content_weight * content_loss(gen_r22, content_r22)
         return c_loss + s_loss, (c_loss, s_loss)
 
+    def loss_rows(params, band, bands, content_band, grams, step):
+        # This rank's band of rows of its data slice: the same total and terms on every
+        # rank of its 'space' line, and the part of the gradients from its rows.
+        if cdtype != torch.float32:
+            params = {k: v.to(cdtype) for k, v in params.items()}
+            band = band.to(cdtype)
+        gen, gen_bands = remat_or_call(functional_call, rows_forward, params, (band, bands))
+        feats = remat_or_call(vgg_compute.forward_rows, vgg_caffe_preprocess(gen), gen_bands)
+        gen_r22, r22_bands = feats["relu2_2"]
+        if content_band.shape[1] != gen_r22.shape[1]:
+            raise ValueError(f"the content relu2_2 band {tuple(content_band.shape)} is not "
+                             f"the generated one's {tuple(gen_r22.shape)}")
+        s_loss = style_weight * style_loss_gram_rows(
+            feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel)
+        c_loss = content_weight * content_loss_rows(gen_r22, content_band, r22_bands)
+        return c_loss + s_loss, (c_loss, s_loss)
+
     params = dict(model.named_parameters())
 
-    def step_fn(batch, content_r22, step, local: bool = False):
-        # local: the batch is this rank's slice already (a streamed batch under a mesh)
+    def step_fn(batch, content_r22, step, local: bool = False, bands: RowBands | None = None):
+        # local: the batch is this rank's slice already (a streamed batch under a mesh;
+        # under a 'space' axis, its band ``bands`` of the data slice's rows, and
+        # content_r22 that band's relu2_2)
         optimizer.zero_grad(set_to_none=True)
-        sharded = mesh is not None and (local or batch.shape[0] % mesh.size == 0)
+        # A full batch shards over the data slices (the 'space' ranks share one); the
+        # ragged tail only where the mesh's size divides it, as JAX's ``tail_mesh``.
+        n = batch.shape[0]
+        sharded = mesh is not None and (local or n % (
+            mesh.size if n < batch_size else mesh.size // spatial_size(mesh)) == 0)
         if sharded and not local:
             batch, content_r22 = shard_batch(batch, mesh), shard_batch(content_r22, mesh)
-        total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step,
-                                          mesh if sharded else None)
+            if banded:
+                bands = RowBands.split(space, batch.shape[1])
+                batch, content_r22 = rows_of(batch, bands), rows_of(content_r22)
+        if banded and sharded:
+            total, (c_loss, s_loss) = loss_rows(params, batch, bands, content_r22,
+                                                targets.grams, step)
+        else:
+            total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step,
+                                              mesh if sharded else None)
         total.backward()
         losses = torch.stack([c_loss, s_loss, total]).detach()
         if mesh is not None:
@@ -244,6 +312,12 @@ def make_step_fns(
         optimizer.step()
         scheduler.step()
         return losses
+
+    def rows_of(t, bands: RowBands | None = None):
+        """This rank's band (``bands``, else split as every layer splits its output) of
+        the rows (NHWC axis 1) of ``t``: the images', or relu2_2's at half their height."""
+        a, b = (bands or RowBands.split(space, t.shape[1])).bounds()
+        return t[:, a:b]
 
     def epoch_fn(content_data, content_r22, perm, base_step):
         perm = torch.as_tensor(np.array(perm), dtype=torch.long).to(content_data.device)
@@ -259,9 +333,19 @@ def make_step_fns(
         # the quantized one, the same extractor as the step's) without gradients,
         # then the compute dtype, so the streamed trajectory is the resident one.
         with torch.no_grad():
-            r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
+            bands = None
+            if banded:
+                # The 'space' line's slices make the data slice; this rank takes its rows,
+                # and computes their relu2_2 banded.
+                batch = torch.cat(space.all_gather(batch.contiguous()))
+                bands = RowBands.split(space, batch.shape[1])
+                batch = rows_of(batch, bands)
+                r22, _ = vgg.forward_rows(vgg_caffe_preprocess(batch), bands,
+                                          just_content=True)
+            else:
+                r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
         return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step,
-                       local=mesh is not None)
+                       local=mesh is not None, bands=bands)
 
     return StepFns(loss_fn=loss_fn, step_fn=step_fn, epoch_fn=epoch_fn,
                    steps_per_epoch=steps_per_epoch, stream_step_fn=stream_step_fn)
@@ -270,12 +354,18 @@ def make_step_fns(
 def sync_gradients(params: list[torch.Tensor], losses: torch.Tensor, mesh: Mesh,
                    sharded: bool) -> torch.Tensor:
     """Make every rank's ``.grad`` of ``params`` and ``losses`` the same, in one
-    collective: their mean over the ranks when each ran its own shard (``sharded``),
-    else rank 0's (each ran the whole batch). Returns the synced losses."""
+    collective: when each ran its own shard (``sharded``), the gradients' sum over the
+    ranks over the number of data slices (a 'space' line's ranks each hold the part
+    from their rows of one slice's gradient) and the losses' mean over the ranks (each
+    rank of a line holds its slice's whole loss); else rank 0's (each ran the whole
+    batch). Returns the synced losses."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads] + [losses.float()])
+    n_grads = flat.numel() - losses.numel()
     if sharded:
-        mesh.all_reduce_(flat).div_(mesh.size)
+        mesh.all_reduce_(flat)
+        flat[:n_grads].div_(mesh.size // spatial_size(mesh))
+        flat[n_grads:].div_(mesh.size)
     else:
         mesh.broadcast_(flat)
     at = 0

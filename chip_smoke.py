@@ -177,12 +177,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     and parameters part, each trainer's first step against the same step in f64; once
     as the trainers run and once with deterministic algorithms, where the two mesh-less
     trainers must be bit-identical;
-16. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
+16. space_train: training over a ('data', 'space') mesh at full width ('cycle', 224x224,
+    global B=4, 16 seeded images, 8 paintings), each image's rows spread over the
+    'space' ranks: a world of one over NCCL with mesh (1, 1) (the banded code, no
+    exchange); 2 gloo ranks on cuda:0 with mesh (1, 2): one f32 epoch (per-step losses
+    within rtol 1e-4 of the one-process ``train()``, the ranks' params bit-identical, K1
+    20 launches a rank), two bf16 epochs (finite, falling), a streamed epoch through
+    ``content_stream=`` (within rtol 1e-3 of the resident one), one 1024x1024, B=1 step
+    (within rtol 1e-4 of the one process's, and each rank's peak memory over the step
+    beside the one process's); 4 gloo ranks with mesh
+    (2, 2): the f32 epoch again; then K1 against its plain version and an f64 product
+    at every band shape the ranks launched it at (``space_train_k1`` lines: warm and
+    cold times, the plain version's, ``torch.bmm``'s, the bound); wall seconds and rank
+    0's ``gloo:`` host ms;
+17. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
     batches' shapes (``stylize_int8`` 512x512 and the int8 classify 256x256 at B = 1, 2
     and 8), the sharded int8 eval's (N=2) and one DP int8 training step's (N=2), each
     recorded from the path's own function and held against its plain version, with
     warm times, bounds and the library yardsticks;
-17. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
+18. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
     64, 19 classes, T = 1000, B = 32, 15,118,659 parameters): ``diff_model_apply`` with
     every weight redrawn (within 1e-4 of max of the port's CPU) and guided DDIM-50 from
     one x_T (> 45 dB against the CPU); ``train_diffusion`` for 2 epochs on 128 seeded
@@ -194,7 +207,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     generated images, 80 epochs, base 32, cosine) for its 12 sampler configurations,
     with the orderings of ``tests/test_diffusion.py`` held at 3 decimals; K1 and K2
     0 launches on every one of these paths;
-18. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+19. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read images (``eval``'s CLI step, ``data``,
@@ -326,6 +339,9 @@ PAR_CLI_CONTENT = 16  # the training CLI --data_parallel on a small seeded works
 # CPU tests. A batch norm on each rank's own half is caught exactly instead: the ranks'
 # running statistics would differ.
 PAR_CLF_RTOL = 5e-3
+SPACE_EPOCHS = 1  # phase space_train: 'cycle' at 224², global B=4, 16 images: 4 steps
+SPACE_MEM_SIZE = 1024  # one step at 1024², B=1: each rank's peak memory against one process's
+SPACE_STREAM_RTOL = 1e-3  # the streamed bar (PERF.md §2)
 SERVE_ROW_BATCHES = (1, 2, 8)  # phase kernel_rows: K2 at the serve batches (4 is phase int8's)
 # Phase diffusion at the diffusion CLI's defaults (JAX diffusion/cli.py:20-29).
 DIFF_SIZE = 64
@@ -3026,6 +3042,206 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
             "band": band}
 
 
+def step_records(model_dir: str, mode: str = "cycle", artist: str = "A") -> np.ndarray:
+    """The per-step [content, style, total] losses of a run's ``metrics.jsonl``."""
+    events = read_jsonl(os.path.join(model_dir, artist, mode, "metrics.jsonl"))
+    return np.array([[e["content_loss"], e["style_loss"], e["total_loss"]]
+                     for e in events if e["event"] == "batch"])
+
+
+def check_k1_shape(shape: tuple, dtype: str, peaks: dict) -> dict:
+    """K1 against its plain version and an f64 product at one input shape, on seeded
+    relu-like input, with phase gram's error measures and bars; its warm time, cold
+    device time, the plain version's, ``torch.bmm``'s, and the bound."""
+    from artist_style_transfer_tpu_torch.ops import gram as gram_ops
+    from artist_style_transfer_tpu_torch.ops.cuda import gram_kernel
+
+    n, h, w, c = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(h * w + c)
+    f = torch.rand(shape, generator=gen, device="cuda").to(dt)
+    g_kernel = gram_kernel.gram_matrix_cuda(f)
+    g_plain = gram_ops.gram_matrix_plain(f.float())
+    abs_err = (g_kernel - g_plain).abs().max().item()
+    rel_err = abs_err / g_plain.abs().max().item()
+    f64 = f.double().reshape(n, h * w, c)
+    g64 = torch.bmm(f64.transpose(1, 2), f64) / float(c * h * w)
+    kernel_vs_f64 = (g_kernel.double() - g64).abs().max().item() / g64.abs().max().item()
+    require(rel_err <= (1e-4 if dt == torch.float32 else 1e-3),
+            f"space_train: K1 {shape} {dtype}: rel err {rel_err}")
+    require(dt != torch.float32 or kernel_vs_f64 <= 5e-6,
+            f"space_train: K1 {shape}: kernel vs f64 {kernel_vs_f64}")
+    f3, scale = f.reshape(n, h * w, c), 1.0 / float(c * h * w)
+    run = lambda: gram_kernel.gram_matrix_cuda(f)  # noqa: E731
+    t_ops, t_bytes = gram_bound(n, h * w, c, dt, peaks)
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err, "kernel_vs_f64_rel": kernel_vs_f64,
+            "ms": time_ms(run), "device_ms": device_ms(run, "gram_tile_kernel"),
+            "plain_ms": time_ms(lambda: gram_ops.gram_matrix_plain(f)),
+            "library_ms": time_ms(lambda: torch.bmm(f3.transpose(1, 2), f3) * scale),
+            "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
+                      size: int = TRAIN_SIZE, mem_size: int = SPACE_MEM_SIZE,
+                      wide_epochs: int = SPACE_EPOCHS) -> dict:
+    """Training over a ('data', 'space') mesh at full width ('cycle', the TransformerNet
+    and VGG16 to relu4_3, global B=4, 16 seeded images, 8 paintings), each image's rows
+    over the 'space' ranks. In this process: the one-process ``train()`` and a
+    one-process step at 1024², B=1 (its peak memory), then a world of one over NCCL with
+    mesh (1, 1) (the banded code with no exchange). Then 2 gloo ranks on cuda:0 (NCCL
+    refuses two ranks on one card), one launch: a (1, 2) epoch in f32 (per-step losses
+    within rtol 1e-4 of the one process, the ranks' params bit-identical), two bf16
+    epochs (finite, falling), a streamed epoch through ``content_stream=`` (within rtol
+    1e-3 of the resident one) and the 1024² step (each rank's peak memory); then 4 gloo
+    ranks with mesh (2, 2), one launch: the f32 epoch again. K1's launches a rank are
+    counted, and K1 is held against its plain version at every band shape the ranks
+    launched it at. ``device="cpu"`` (with small sizes) rehearses it on the CPU over
+    gloo, without K1."""
+    import torch.distributed as dist
+
+    from artist_style_transfer_tpu_torch.models.transformer import init_transformer
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.parallel.launch import free_port
+    from artist_style_transfer_tpu_torch.train import train
+
+    on_card = device == "cuda"
+    content, paintings = train_data(size)
+    steps = TRAIN_CONTENT // TRAIN_BATCH
+    vgg = init_vgg16(torch.Generator().manual_seed(0))
+    kw = dict(style_method="cycle", artist="A", num_epochs=wide_epochs,
+              batch_size=TRAIN_BATCH, content_images=content, paintings=paintings, vgg=vgg,
+              save_every=0, wordy=False, log_every_batches=1)
+    rng = np.random.default_rng(12)
+    mem_setup = dict(model=init_transformer(torch.Generator().manual_seed(0)), vgg=vgg,
+                     content=rng.uniform(0, 255, (1, mem_size, mem_size, 3)).astype(np.float32),
+                     paintings=rng.uniform(0, 255, (1, mem_size, mem_size, 3)).astype(
+                         np.float32),
+                     batch_size=1, content_weight=17.0, style_weight=25.0, step=0)
+    k1_expect = (4 * -(-TRAIN_PAINTINGS // 8) + 4 * steps * wide_epochs) if on_card else 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_space_")
+    run_dir = lambda name: os.path.join(tmp, name)  # noqa: E731
+    try:
+        # The one-process references, in this process.
+        t0 = time.perf_counter()
+        train(device=device, model_dir=run_dir("one"), **kw)
+        one_s = time.perf_counter() - t0
+        one_steps = step_records(run_dir("one"))
+        require(one_steps.shape == (steps * wide_epochs, 3),
+                f"space_train: one process logged {one_steps.shape}")
+        mem_one = workers.space_step_rank(make_mesh(device=device), None, mem_setup)
+
+        # A world of one over NCCL, mesh (1, 1): the banded code, no exchange.
+        t0 = time.perf_counter()
+        backend = "nccl" if on_card else "gloo"
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            workers.train_rank(make_mesh(device=device),
+                               dict(kw, model_dir=run_dir("solo")), shape=(1, 1))
+        finally:
+            dist.destroy_process_group()
+        solo_s = time.perf_counter() - t0
+        solo_rel = par_trajectory(f"space (1, 1) world of one over {backend}",
+                                  step_records(run_dir("solo")), one_steps, 1e-4)
+
+        # Two gloo ranks on one card: (1, 2).
+        stream_kw = {k: v for k, v in kw.items() if k != "content_images"}
+        stream_kw.update(content_stream=workers.ArrayStream(content, TRAIN_BATCH, 2),
+                         content_data_size=TRAIN_CONTENT, train_size=size,
+                         model_dir=run_dir("stream"))
+        jobs = [(workers.train_rank, (dict(kw, model_dir=run_dir("s12")),),
+                 {"shape": (1, 2), "profile": True, "record_k1": True}),
+                (workers.train_rank, (dict(kw, num_epochs=2, compute_dtype="bfloat16",
+                                           model_dir=None),),
+                 {"shape": (1, 2), "record_k1": True}),
+                (workers.train_rank, (stream_kw,), {"shape": (1, 2)}),
+                (workers.space_step_rank, ((1, 2), mem_setup), {})]
+        t0 = time.perf_counter()
+        two = launch(workers.run_jobs, 2, jobs, backend="gloo",
+                     device="cuda:0" if on_card else "cpu", threads=None if on_card else 2,
+                     timeout_s=900)
+        two_s = time.perf_counter() - t0
+        # Four gloo ranks on one card: (2, 2).
+        t0 = time.perf_counter()
+        four = launch(workers.run_jobs, 4, [
+            (workers.train_rank, (dict(kw, model_dir=run_dir("s22")),),
+             {"shape": (2, 2), "profile": True, "record_k1": True})],
+            backend="gloo", device="cuda:0" if on_card else "cpu",
+            threads=None if on_card else 1, timeout_s=900)
+        four_s = time.perf_counter() - t0
+        s12, s22 = step_records(run_dir("s12")), step_records(run_dir("s22"))
+        stream_steps = step_records(run_dir("stream"))
+        epoch_secs = {name: [e["secs"] for e in read_jsonl(os.path.join(
+            run_dir(name), "A", "cycle", "metrics.jsonl")) if e["event"] == "epoch"]
+            for name in ("one", "solo", "s12", "s22", "stream")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rels = {"s12_rel": par_trajectory("space (1, 2)", s12, one_steps, 1e-4),
+            "s22_rel": par_trajectory("space (2, 2)", s22, one_steps, 1e-4),
+            "stream_rel": par_trajectory("space (1, 2) streamed", stream_steps, s12,
+                                         SPACE_STREAM_RTOL),
+            "mem_step_rel": par_trajectory("space (1, 2) 1024² step", two[0][3]["losses"],
+                                           mem_one["losses"], 1e-4)}
+    for name, ranks, jobs_at in (("(1, 2)", two, (0, 1, 2)), ("(2, 2)", four, (0,))):
+        for other in ranks[1:]:
+            for i in jobs_at:
+                require(np.array_equal(other[i]["losses"], ranks[0][i]["losses"])
+                        and all(np.array_equal(v, ranks[0][i]["params"][k])
+                                for k, v in other[i]["params"].items()),
+                        f"space_train: the {name} ranks' params or losses differ (job {i})")
+    bf16 = two[0][1]["losses"]
+    require(bool(np.isfinite(bf16).all()) and bf16[-1, 2] < bf16[0, 2],
+            f"space_train: bf16 epochs {bf16[:, 2].tolist()} not finite and falling")
+    for name, ranks, i in (("(1, 2)", two, 0), ("(2, 2)", four, 0), ("(1, 2) bf16", two, 1)):
+        want = k1_expect if i == 0 else (4 + 4 * steps * 2 if on_card else 0)
+        got = [r[i]["launches"]["k1"] for r in ranks]
+        require(all(g == want for g in got),
+                f"space_train: {name} K1 launches by rank {got}, not {want} each")
+    # K1 against its plain version at every band shape the ranks launched it at. The
+    # images are square, so a band has fewer rows than columns; the targets' whole
+    # paintings (phase train's shapes) have as many.
+    shapes: dict[tuple, int] = {}
+    for ranks, i in ((two, 0), (two, 1), (four, 0)):
+        for r in ranks:
+            for shape, dtype, count in r[i].get("k1_shapes", []):
+                if shape[1] < shape[2]:
+                    shapes[(tuple(shape), dtype)] = shapes.get((tuple(shape), dtype), 0) + count
+    require(not on_card or len(shapes) == 12,
+            f"space_train: K1 ran at {len(shapes)} band shapes, not 4 taps x 3 runs")
+    k1_rows = {}
+    if on_card:
+        for (shape, dtype), count in sorted(shapes.items()):
+            row = check_k1_shape(shape, dtype, peaks)
+            emit("space_train_k1", shape=list(shape), dtype=dtype, launches=count, **row,
+                 bound_by="operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+                 card=smi)
+            k1_rows[f"{'x'.join(map(str, shape))}_{dtype}"] = dict(row, launches=count)
+    # The band taps of one (1, 2) f32 step (rank 0's rows of the whole batch): K1's row.
+    band = [f"{TRAIN_BATCH}x{size // (2 * d)}x{size // d}x{c}_float32" for _, d, c in TAPS]
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    step_taps = ({k: sum(k1_rows[b][k] for b in band) for k in keys}
+                 if on_card and all(b in k1_rows for b in band) else {})
+    require(not on_card or step_taps, f"space_train: K1 missed a (1, 2) band tap: {band}")
+    mem = {"one_process": mem_one.get("peak_mem_gib"),
+           "ranks_1x2": [r[3].get("peak_mem_gib") for r in two]}
+    timing = {name: {k: r.get(k) for k in ("secs", "device_ms", "collective_host_ms")}
+              for name, r in (("s12_rank0", two[0][0]), ("s22_rank0", four[0][0]))}
+    emit("space_train", size=size, batch=TRAIN_BATCH, steps=steps * wide_epochs,
+         one_process_s=one_s, solo_s=solo_s, two_rank_launch_s=two_s,
+         four_rank_launch_s=four_s, epoch_secs=epoch_secs, solo_rel=solo_rel, **rels,
+         bf16_epoch_totals=bf16[:, 2].tolist(), k1_launches_rank0={
+             "s12": two[0][0]["launches"]["k1"], "s22": four[0][0]["launches"]["k1"],
+             "s12_bf16": two[0][1]["launches"]["k1"]},
+         k1_band_shapes=len(shapes), peak_mem_gib=mem, mem_size=mem_size, timing=timing,
+         step_taps_1x2=step_taps, card=smi)
+    return {"k1_launches": {"train_space": two[0][0]["launches"]["k1"],
+                            "train_space_2x2": four[0][0]["launches"]["k1"],
+                            "train_space_bf16": two[0][1]["launches"]["k1"]},
+            "step_taps": step_taps, "k1_rows": k1_rows}
+
+
 def classifier_lockstep(mesh, images: np.ndarray, labels: np.ndarray, batch: int,
                         device: str, deterministic: bool = False,
                         num_classes: int = ARTIST_CLF_CLASSES, seed: int = 2,
@@ -3807,6 +4023,8 @@ def main(argv=None) -> int:
     launches.update(serve["k1_launches"])
     par = phase_parallel(peaks)
     launches.update(par["k1_launches"])
+    space = phase_space_train(peaks, smi)
+    launches.update(space["k1_launches"])
     rows = phase_kernel_rows(peaks, smi)
     diff = phase_diffusion(peaks, smi)
     launches.update(diff["k1_launches"])
@@ -3851,6 +4069,12 @@ def main(argv=None) -> int:
                         "card over gloo, 'cycle' at 224x224, global B=4, one epoch (4 for the "
                         "targets, 4 a step on the rank's 2 images), train_dp_int8 the same "
                         "with quantize_loss and QAT trunk (4 for the targets, 2 a step); "
+                        "train_space rank 0 of 2 ranks on one card over gloo training over "
+                        "a ('data', 'space') mesh (1, 2), 'cycle' at 224x224, global B=4, "
+                        "one epoch, each image's rows over the ranks (4 for the targets, "
+                        "4 a step on the rank's band of each tap), train_space_2x2 rank 0 "
+                        "of 4 ranks with mesh (2, 2) (the same counts), train_space_bf16 "
+                        "two bf16 epochs over (1, 2) (4 + 4 a step); "
                         "the diffusion_* paths (guided DDIM, training, the samplers, the CLI, "
                         "the CFID curve's training and sampling) compute no Gram: 0",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
@@ -3859,11 +4083,16 @@ def main(argv=None) -> int:
                      f"N={TRAIN_BATCH}, f32), train_taps_bf16 in bf16, int8_train_taps_bf16 "
                      "over relu1_2 and relu2_2 in bf16 (the taps of an int8 training step), "
                      f"train_dp_taps over the taps of a DP 'cycle' rank's step "
-                     f"({TRAIN_SIZE}x{TRAIN_SIZE}, N=2, f32)",
+                     f"({TRAIN_SIZE}x{TRAIN_SIZE}, N=2, f32), train_space_taps over a "
+                     f"(1, 2) ('data', 'space') rank's band of each tap "
+                     f"({TRAIN_BATCH}x{TRAIN_SIZE // 2}x{TRAIN_SIZE}x64 and on, f32), "
+                     "train_space_shapes each band shape those runs launched K1 at",
         "train_taps": gram["train_taps"],
         "train_taps_bf16": gram["train_taps_bf16"],
         "int8_train_taps_bf16": gram["int8_train_taps_bf16"],
         "train_dp_taps": rows["k1_train_dp"],
+        "train_space_taps": space["step_taps"],
+        "train_space_shapes": space["k1_rows"],
         "peaks": variant,
     }, {
         "name": "qconv_i8",

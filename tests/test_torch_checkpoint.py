@@ -240,21 +240,24 @@ def test_checkpoint_roundtrip_restores_model_and_optimizer(tmp_path):
 
 
 UNPORTED = [
-    (dict(mesh=space_mesh()), "item 12b"),
-    (dict(qat=True, fold_batch=True), "batch->H folded"),
-    (dict(quantize_loss="all", fold_batch=True), "use quantize_loss='deep'"),
+    (dict(mesh=space_mesh()), ValueError, "needs 2 ranks; its process group holds 1"),
+    (dict(qat=True, fold_batch=True), NotImplementedError, "batch->H folded"),
+    (dict(quantize_loss="all", fold_batch=True), NotImplementedError,
+     "use quantize_loss='deep'"),
 ]
 
 
-@pytest.mark.parametrize("kw,slice_name", UNPORTED,
-                         ids=["-".join(f"{k}={v!r}"[:24] for k, v in kw.items()) for kw, _ in UNPORTED])
-def test_train_refuses_what_later_slices_bring(hooks, tmp_path, kw, slice_name):
-    """A mesh with a 'space' axis waits for item 12b; the int8 options refuse what JAX
-    refuses."""
+@pytest.mark.parametrize("kw,exc,slice_name", UNPORTED,
+                         ids=["-".join(f"{k}={v!r}"[:24] for k, v in kw.items())
+                              for kw, _, _ in UNPORTED])
+def test_train_refuses_what_later_slices_bring(hooks, tmp_path, kw, exc, slice_name):
+    """A ('data', 'space') mesh whose shape needs more ranks than its process group
+    holds raises ``ValueError`` (its collectives would be the identity); the int8
+    options refuse what JAX refuses."""
     args = dict(hooks, style_method="cycle", artist="A", num_epochs=1, batch_size=2,
                 model_dir=str(tmp_path))
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(exc, match=slice_name):
         train(**args)
     assert not os.listdir(tmp_path)  # refused before anything was written
 

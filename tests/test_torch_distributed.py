@@ -191,13 +191,22 @@ def test_mesh_collectives_and_make_global_over_four_ranks():
 
 
 def test_data_parallel_refuses_a_space_axis():
+    """Evaluation, stylization and the other trainers refuse a 'space' axis (ROADMAP
+    item 12d); the style-transfer trainer admits it, but not a shape its process group
+    cannot hold."""
     import dataclasses
+
+    from artist_style_transfer_tpu_torch.parallel.mesh import train_mesh
 
     mesh = make_mesh((1,), device="cpu")
     assert data_parallel(mesh) is mesh and data_parallel(None) is None
     wide = dataclasses.replace(mesh, axis_names=("data", "space"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         data_parallel(wide)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        train_mesh(wide)
+    one = make_mesh((1, 1), ("data", "space"), device="cpu")
+    assert train_mesh(one) is one and one.axis_mesh("space").size == 1
 
 
 def _fails(mesh, which):

@@ -158,12 +158,12 @@ def _refusals(mesh, model, image):
 
 
 def test_stylize_spatial_refusals(spatial):
-    """The ranks must divide H, as JAX's sharding needs; a 'space' mesh waits for 12b."""
+    """The ranks must divide H, as JAX's sharding needs; a 'space' mesh waits for 12d."""
     from artist_style_transfer_tpu_torch.infer.stylize import stylize_spatial
     from tests.test_torch_distributed import space_mesh
 
     img = spatial["images"][SHAPES[0]]
     got = launch(_refusals, 2, spatial["model"], img, backend="gloo", device="cpu")[0]
     assert got == ["image height 7 does not divide over the 2-rank mesh", None]
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         stylize_spatial(spatial["model"], img, space_mesh(), device="cpu")

@@ -350,7 +350,7 @@ def test_train_classifier_defaults_and_refusals(tmp_path):
                                                   **one)
     np.testing.assert_allclose(hist_dp["train_loss"], hist["train_loss"], rtol=1e-3)
     assert hist_dp["train_acc"] == hist["train_acc"]
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         tclassifier.train_classifier(images, labels, mesh=space_mesh(), device="cpu")
     with pytest.raises(ValueError, match="smaller than batch_size"):
         tclassifier.train_classifier(images, labels, batch_size=64, device="cpu")

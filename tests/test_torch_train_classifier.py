@@ -300,7 +300,7 @@ def test_train_classifier_hook_forms_agree(hooks, tmp_path):
 REFUSED = [
     (dict(qat=True, fold_batch=True), NotImplementedError, "batch->H folded"),
     (dict(quantize_loss="all", fold_batch=True), NotImplementedError, "quantize_loss='deep'"),
-    (dict(mesh=space_mesh()), NotImplementedError, "item 12b"),
+    (dict(mesh=space_mesh()), NotImplementedError, "item 12c"),
     (dict(artist="Albrecht_Dürer"), ValueError, "not in tuple"),
 ]
 
