@@ -21,12 +21,22 @@ classifier itself (``train/classifier.py``) runs the same trunk through
 :func:`update_running_stats`.
 
 Input: NHWC, **RGB**, [0,1] torchvision-normalized.
+
+``forward_rows`` runs the frozen net on one band of an image's rows while the other
+ranks of a mesh run the others (:mod:`parallel.spatial`), for 'classifier'-mode
+training over a 'space' axis: the stem's 7x7/2 and each bottleneck's 3x3 conv and
+stride-2 downsample on their gathered, zero-padded rows, the 1x1 convs and the
+inference BN (a per-channel affine, no statistic) on the band, the 3x3/2 pool on its
+gathered rows; the head's max and mean pools over every rank's rows, their result
+and the head's logits the same on every rank, the pools' cotangents passed through
+(every rank's loss holds the whole logits).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from artist_style_transfer_tpu_torch.ops.conv import (
     avg_pool_global,
@@ -36,6 +46,14 @@ from artist_style_transfer_tpu_torch.ops.conv import (
     max_pool_global,
 )
 from artist_style_transfer_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    conv_rows,
+    max_pool_rows,
+    on_band,
+    row_max,
+    row_mean,
+)
 from artist_style_transfer_tpu_torch.utils.device import resolve_device
 
 # The 19 artist classes, reference train_cnn.py:262-266 / inference.py:15-19.
@@ -87,6 +105,31 @@ class Bottleneck(nn.Module):
             identity = bn(conv2d(x, conv.weight, stride=self.stride), down_bn)
         return torch.relu(h + identity)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` (frozen BN) on this rank's band of rows: the 1x1 convs on the
+        band, the 3x3 conv and a stride-2 downsample (whose output rows read input rows
+        2q, which may sit on another rank) on their gathered rows."""
+        def conv1x1(t, w):
+            return on_band(t, lambda u: conv2d(u, w), w.shape[0])
+
+        h = torch.relu(_bn(conv1x1(x, self.conv1.weight), self.bn1))
+        w2 = self.conv2.weight
+        h, out = conv_rows(h, rows, 3, self.stride, 1,
+                           lambda t: F.conv2d(t, w2, stride=self.stride, padding=(0, 1)),
+                           w2.shape[0], pad_mode="zeros")
+        h = _bn(conv1x1(torch.relu(_bn(h, self.bn2)), self.conv3.weight), self.bn3)
+        identity = x
+        if self.downsample is not None:
+            conv, down_bn = self.downsample
+            if self.stride == 1:
+                identity = conv1x1(x, conv.weight)
+            else:
+                identity, _ = conv_rows(x, rows, 1, self.stride, 0,
+                                        lambda t: conv2d(t, conv.weight, stride=self.stride),
+                                        conv.weight.shape[0], pad_mode="zeros")
+            identity = _bn(identity, down_bn)
+        return torch.relu(h + identity), out
+
 
 class ResNet50Classifier(nn.Module):
     """The reference ``ArtistClassifier`` under its own state-dict keys."""
@@ -120,6 +163,24 @@ class ResNet50Classifier(nn.Module):
         fc1 output (the embedding JAX's Fréchet metric reads)."""
         return _forward(self, x_nhwc, _bn, return_features)
 
+    def forward_rows(self, x_nhwc: torch.Tensor, rows: RowBands) -> torch.Tensor:
+        """:meth:`forward`'s logits from this rank's band of rows (``rows`` says whose
+        band is which) of NHWC images: the same (N, num_classes) on every rank of
+        ``rows.mesh``, which all run it at once."""
+        body, head = self.get_submodule("0"), self.get_submodule("1")
+        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        w = body.get_submodule("0").weight
+        x, rows = conv_rows(x, rows, 7, 2, 3, lambda t: F.conv2d(t, w, stride=2, padding=(0, 3)),
+                            w.shape[0], pad_mode="zeros")
+        x = torch.relu(_bn(x, body.get_submodule("1")))
+        x, rows = max_pool_rows(x, rows)
+        for i in range(len(RESNET50_STAGES)):
+            for block in body.get_submodule(str(4 + i)):
+                x, rows = block.forward_rows(x, rows)
+        feats = torch.cat([row_max(x, rows), row_mean(x, rows, replicated=True)[:, :, 0, 0]],
+                          dim=1)
+        return _head(head, feats, _bn, False)
+
 
 def _forward(model: ResNet50Classifier, x_nhwc: torch.Tensor, bn, return_features: bool):
     """The shared trunk (JAX ``_forward``); ``bn(h, module)`` supplies the BN behaviour."""
@@ -132,6 +193,11 @@ def _forward(model: ResNet50Classifier, x_nhwc: torch.Tensor, bn, return_feature
         for block in body.get_submodule(str(4 + i)):
             x = block(x, bn)
     feats = torch.cat([max_pool_global(x), avg_pool_global(x)], dim=1)  # (N, 4096)
+    return _head(head, feats, bn, return_features)
+
+
+def _head(head: nn.Module, feats: torch.Tensor, bn, return_features: bool) -> torch.Tensor:
+    """The fastai head on the concat-pooled features (N, 4096)."""
     fc1, fc2 = head.get_submodule("4"), head.get_submodule("8")
     h = torch.relu(linear(bn(feats, head.get_submodule("2")), fc1.weight, fc1.bias))
     if return_features:

@@ -15,8 +15,14 @@ eval runs it forward only, so its bottleneck convs can run in int8:
 The real unit stream is bf16. Unlike the TransformerNet's IN, the folded BN lets
 the quantization error propagate: it is rounding noise on a 19-way argmax.
 Input: NHWC, RGB, torchvision-normalized, as :class:`models.resnet.ResNet50Classifier`.
-'classifier'-mode training differentiates through the classifier and keeps the
-real-dtype net.
+'classifier'-mode training differentiates through the classifier: the int8 convs'
+STE data gradients run on K2 too.
+
+``QuantizedClassifier.forward_rows`` runs it on one band of an image's rows, as
+``ResNet50Classifier.forward_rows`` runs the real net: each int8 conv with a
+window of more than one row or a stride on its gathered, zero-padded rows (W padded
+before the quantize), its input scale the max over the batch's ranks of their own
+rows; an empty band launches no K2 and joins every scale's collective.
 """
 
 from __future__ import annotations
@@ -32,7 +38,14 @@ from artist_style_transfer_tpu_torch.ops.conv import (
     max_pool_global,
 )
 from artist_style_transfer_tpu_torch.ops.norm import BATCH_NORM_EPS
-from artist_style_transfer_tpu_torch.ops.qconv import conv2d_frozen_int8, quant_weight
+from artist_style_transfer_tpu_torch.ops.qconv import absmax_scale, conv2d_frozen_int8, quant_weight
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    conv_rows,
+    max_pool_rows,
+    row_max,
+    row_mean,
+)
 
 _REAL_DTYPE = torch.bfloat16
 _HEAD_KEYS = {"bn1": ("gamma", "beta", "mean", "var"), "fc1": ("w", "b"),
@@ -70,6 +83,22 @@ class FrozenInt8Conv(nn.Module):
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         return conv2d_frozen_int8(x, self.wq, self.sw, self.b, self.padding, self.stride, mesh)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowBands,
+                     mesh) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows; ``mesh`` the batch's ranks."""
+        k, p, s = self.wq.shape[2], self.padding, self.stride
+        if k == 1 and s == 1:  # band-local
+            return self(x, mesh), rows
+        s_in = absmax_scale(x, mesh)  # over the rows this rank owns, before the gather
+
+        def run(t):  # H arrives zero-padded; W is padded before the quantize
+            if p:
+                t = F.pad(t, (p, p, 0, 0)).contiguous(memory_format=torch.channels_last)
+            return conv2d_frozen_int8(t, self.wq, self.sw, self.b, 0, s, mesh, s_in)
+
+        return conv_rows(x, rows, k, s, p, run, self.wq.shape[0], pad_mode="zeros",
+                         collective=True)
+
 
 class QuantizedBottleneck(nn.Module):
     def __init__(self, p: dict, stride: int):
@@ -85,6 +114,14 @@ class QuantizedBottleneck(nn.Module):
         h = self.conv3(h, mesh)
         identity = x if self.down is None else self.down(x, mesh)
         return torch.relu(h + identity)
+
+    def forward_rows(self, x: torch.Tensor, rows: RowBands,
+                     mesh) -> tuple[torch.Tensor, RowBands]:
+        h = torch.relu(self.conv1.forward_rows(x, rows, mesh)[0])
+        h, out = self.conv2.forward_rows(h, rows, mesh)
+        h = self.conv3.forward_rows(torch.relu(h), out, mesh)[0]
+        identity = x if self.down is None else self.down.forward_rows(x, rows, mesh)[0]
+        return torch.relu(h + identity), out
 
 
 class QuantizedClassifier(nn.Module):
@@ -132,10 +169,32 @@ class QuantizedClassifier(nn.Module):
             for block in stage:
                 x = block(x, mesh)
         feats = torch.cat([max_pool_global(x), avg_pool_global(x)], dim=1)
+        return self._head(feats, return_features)
+
+    def _head(self, feats: torch.Tensor, return_features: bool = False) -> torch.Tensor:
         h = torch.relu(self._linear(self._bn1d(feats, "bn1"), "fc1"))
         if return_features:
             return h
         return self._linear(self._bn1d(h, "bn2"), "fc2")
+
+    def forward_rows(self, x_nhwc: torch.Tensor, rows: RowBands, mesh=None) -> torch.Tensor:
+        """:meth:`forward`'s bf16 logits from this rank's band of rows (``rows`` says
+        whose band is which), the same on every rank of ``rows.mesh``, which all run it
+        at once. ``mesh``: the ranks that hold the batch between them, for the dynamic
+        scales (None: ``rows.mesh``)."""
+        mesh = rows.mesh if mesh is None else mesh
+        x = x_nhwc.to(_REAL_DTYPE).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h, rows = conv_rows(x, rows, 7, 2, 3,
+                            lambda t: F.conv2d(t, self.stem_w, stride=2, padding=(0, 3)),
+                            self.stem_w.shape[0], pad_mode="zeros")
+        x = torch.relu(h.float() + self.stem_b.view(1, -1, 1, 1)).to(_REAL_DTYPE)
+        x, rows = max_pool_rows(x, rows)
+        for stage in self.stages:
+            for block in stage:
+                x, rows = block.forward_rows(x, rows, mesh)
+        feats = torch.cat([row_max(x, rows), row_mean(x, rows, replicated=True)[:, :, 0, 0]],
+                          dim=1)
+        return self._head(feats)
 
 
 def _quant_conv_params(conv: nn.Conv2d, bn: nn.Module) -> dict:

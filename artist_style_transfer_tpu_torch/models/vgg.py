@@ -19,7 +19,9 @@ contiguous NHWC view — the layout the Gram kernel reads.
 ``VGG16Features.forward_rows`` runs the same stack on one band of an image's rows
 while the other ranks of a mesh run the others (:mod:`parallel.spatial`: the 3x3
 convs' zero-padded halo rows and the pools' straddling row pairs fetched from the
-neighbours), differentiable, for training over a 'space' axis.
+neighbours), differentiable, for training over a 'space' axis;
+``QuantizedVGG16Features.forward_rows`` likewise, its int8 convs on K2 with their
+dynamic scales the whole batch's.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from artist_style_transfer_tpu_torch.ops.qconv import conv2d_frozen_int8, quant_weight
+from artist_style_transfer_tpu_torch.ops.qconv import absmax_scale, conv2d_frozen_int8, quant_weight
 from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, conv_rows, pool_rows
 
 VGG_LAYER_NAMES = ("relu1_2", "relu2_2", "relu3_3", "relu4_3")
@@ -74,31 +76,63 @@ class VGG16Features(nn.Module):
         return taps
 
     def forward_rows(
-        self, x_nhwc: torch.Tensor, rows: RowBands, just_content: bool = False
+        self, x_nhwc: torch.Tensor, rows: RowBands, just_content: bool = False, mesh=None
     ) -> dict[str, tuple[torch.Tensor, RowBands]] | tuple[torch.Tensor, RowBands]:
         """:meth:`forward` on this rank's band of rows (``rows`` says whose band is which)
         of NHWC preprocessed images: {tap: (this rank's NHWC band of it, its
         :class:`RowBands`)}, or relu2_2's pair alone. Every rank of ``rows.mesh`` runs it
-        at once."""
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        taps: dict[str, tuple[torch.Tensor, RowBands]] = {}
-        for idx, _, cout in VGG_CONVS:
-            if idx in POOL_BEFORE:
-                x, rows = pool_rows(x, rows)
-            conv = getattr(self.features, str(idx))
+        at once. ``mesh`` is taken, as :meth:`forward` takes it, and unused."""
+        del mesh
+        return _forward_rows(
+            x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last), rows,
+            [_real_conv(getattr(self.features, str(idx)).weight,
+                        getattr(self.features, str(idx)).bias) for idx, _, _ in VGG_CONVS],
+            just_content)
 
-            def run(t, w=conv.weight, b=conv.bias):  # H arrives zero-padded; W is padded here
-                return F.conv2d(t, w, b, padding=(0, 1))
 
-            x, rows = conv_rows(x, rows, 3, 1, 1, run, cout, pad_mode="zeros")
-            x = F.relu(x)
-            name = TAP_AFTER.get(idx)
-            if name is not None:
-                tap = (x.permute(0, 2, 3, 1), rows)
-                if just_content and name == "relu2_2":
-                    return tap
-                taps[name] = tap
-        return taps
+def _real_conv(w: torch.Tensor, b: torch.Tensor):
+    """A banded layer of :func:`_forward_rows`: the zero-padded 3x3 conv in the real dtype."""
+    def layer(x, rows):
+        def run(t):  # H arrives zero-padded; W is padded here
+            return F.conv2d(t, w, b, padding=(0, 1))
+
+        return conv_rows(x, rows, 3, 1, 1, run, w.shape[0], pad_mode="zeros")
+
+    return layer
+
+
+def _int8_conv(wq: torch.Tensor, sw: torch.Tensor, b: torch.Tensor, mesh):
+    """A banded layer of :func:`_forward_rows`: the zero-padded 3x3 conv in int8 on K2, its
+    input scale the max over ``mesh`` of every rank's own rows (the halo rows are some
+    other rank's), taken before the gather; an empty band launches nothing and joins
+    the scales' collectives, forward and backward."""
+    def layer(x, rows):
+        s_in = absmax_scale(x, mesh)
+
+        def run(t):  # H arrives zero-padded; W is padded before the quantize
+            t = F.pad(t, (1, 1, 0, 0)).contiguous(memory_format=torch.channels_last)
+            return conv2d_frozen_int8(t, wq, sw, b, 0, 1, mesh, s_in)
+
+        return conv_rows(x, rows, 3, 1, 1, run, wq.shape[0], pad_mode="zeros", collective=True)
+
+    return layer
+
+
+def _forward_rows(x: torch.Tensor, rows: RowBands, layers: list, just_content: bool):
+    """The banded VGG16 stack over NCHW ``x``: ``layers[i](x, rows)`` runs conv i."""
+    taps: dict[str, tuple[torch.Tensor, RowBands]] = {}
+    for (idx, _, _), layer in zip(VGG_CONVS, layers):
+        if idx in POOL_BEFORE:
+            x, rows = pool_rows(x, rows)
+        x, rows = layer(x, rows)
+        x = F.relu(x)
+        name = TAP_AFTER.get(idx)
+        if name is not None:
+            tap = (x.permute(0, 2, 3, 1), rows)
+            if just_content and name == "relu2_2":
+                return tap
+            taps[name] = tap
+    return taps
 
 
 # First quantized conv (index into VGG_CONVS) of each named split of quantize_vgg16_loss.
@@ -168,6 +202,22 @@ class QuantizedVGG16Features(nn.Module):
                     return tap
                 taps[name] = tap
         return taps
+
+    def forward_rows(
+        self, x_nhwc: torch.Tensor, rows: RowBands, just_content: bool = False, mesh=None
+    ) -> dict[str, tuple[torch.Tensor, RowBands]] | tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows, as
+        :meth:`VGG16Features.forward_rows`: the real convs below ``first_q`` in the real
+        dtype, the int8 ones on K2 with their dynamic scales the max over ``mesh`` (the
+        ranks that hold the batch between them; None: ``rows.mesh``)."""
+        mesh = rows.mesh if mesh is None else mesh
+        layers = [_real_conv(getattr(self, f"w{i}"), getattr(self, f"b{i}")) if i < self.first_q
+                  else _int8_conv(getattr(self, f"wq{i}"), getattr(self, f"sw{i}"),
+                                  getattr(self, f"b{i}"), mesh)
+                  for i in range(len(VGG_CONVS))]
+        x = x_nhwc.to(self.w0.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        return _forward_rows(x, rows, layers, just_content)
 
 
 def quantize_vgg16_loss(vgg: VGG16Features, layers: str | int = "deep",

@@ -15,6 +15,9 @@ int8 -> int32 matrix products, which the JAX package runs as XLA
 JAX's is; no hand kernel is written for them, as the roadmap asks for one only
 where a profile of the card does. On the CPU the plain version holds the codes in
 f64 (the sums reach HW * 127^2, past f32's 2^24, and f64 holds them exactly).
+:func:`gram_matrix_int8_rows` is the same Gram from bands of an image's rows: each
+band's int32 products, summed over the ranks in int32, equal the one process's
+exactly, given the same codes.
 """
 
 from __future__ import annotations
@@ -22,7 +25,13 @@ from __future__ import annotations
 import torch
 
 from artist_style_transfer_tpu_torch.ops.qconv import absmax_scale, quant_i8
-from artist_style_transfer_tpu_torch.parallel.spatial import sum_over_ranks, zeros_from
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    int_sum_over_ranks,
+    sum_over_ranks,
+    zeros_from,
+)
 
 INT_MM_CALLS = 0  # torch._int_mm calls of the int8 Gram, forward and backward
 
@@ -126,35 +135,59 @@ def int8_products(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 
 class GramInt8Function(torch.autograd.Function):
-    """The int8 Gram and its STE backward (JAX ``_gram_int8_fwd`` / ``_gram_int8_bwd``)."""
+    """The int8 Gram and its STE backward (JAX ``_gram_int8_fwd`` / ``_gram_int8_bwd``)
+    from this rank's band of rows (the whole image where ``bands`` has one rank):
+    ``s_f`` the max over ``mesh`` (every rank that holds part of the batch), each band's
+    int32 products summed over the 'space' ranks (``bands.mesh``) in int32, then scaled
+    with the global H. The backward takes the whole Gram's cotangent (every rank's loss
+    holds the whole Gram) and gives the band's dF = s_f·s_sym·Fq_band·quant(sym),
+    ``s_sym`` the max over ``mesh``. An empty band launches nothing and joins every
+    collective."""
 
     @staticmethod
-    def forward(ctx, features_nhwc: torch.Tensor, mesh) -> torch.Tensor:
-        n, h, w, c = features_nhwc.shape
-        s_f = absmax_scale(features_nhwc, mesh)
-        fq = features_nhwc.new_zeros((n, _int_mm_rows(h * w), c), dtype=torch.int8)
-        fq[:, : h * w] = quant_i8(features_nhwc, s_f).reshape(n, h * w, c)
+    def forward(ctx, band_nhwc: torch.Tensor, bands, mesh) -> torch.Tensor:
+        n, h, w, c = band_nhwc.shape
+        s_f = absmax_scale(band_nhwc, mesh)
+        fq = band_nhwc.new_zeros((n, _int_mm_rows(h * w), c), dtype=torch.int8)
+        if h:
+            fq[:, : h * w] = quant_i8(band_nhwc, s_f).reshape(n, h * w, c)
+            fq_t = fq.transpose(1, 2).contiguous()  # (N, C, HW): Fq^T row-major
+            acc = int8_products(fq_t, fq_t)
+        else:
+            acc = band_nhwc.new_zeros((n, c, c), dtype=torch.int32)
+        acc = int_sum_over_ranks(acc, bands.mesh)
         ctx.save_for_backward(fq, s_f)
-        ctx.meta = (features_nhwc.shape, features_nhwc.dtype)
+        ctx.meta = (band_nhwc.shape, band_nhwc.dtype, bands.height)
         ctx.mesh = mesh
-        fq_t = fq.transpose(1, 2).contiguous()  # (N, C, HW): Fq^T row-major
-        acc = int8_products(fq_t, fq_t)
-        return acc.float() * (s_f * s_f / float(c * h * w))
+        return acc.float() * (s_f * s_f / float(c * bands.height * w))
 
     @staticmethod
     def backward(ctx, dg: torch.Tensor):
         fq, s_f = ctx.saved_tensors
-        (n, h, w, c), dtype = ctx.meta
-        sym = (dg.float() + dg.float().transpose(1, 2)) * (1.0 / float(c * h * w))
+        (n, h, w, c), dtype, height = ctx.meta
+        sym = (dg.float() + dg.float().transpose(1, 2)) * (1.0 / float(c * height * w))
         s_sym = absmax_scale(sym, ctx.mesh)
-        sym_t = quant_i8(sym, s_sym).transpose(1, 2)  # b[n] = symq[n], handed over transposed
+        if not h:
+            return dg.new_zeros((n, 0, w, c), dtype=dtype), None, None
+        sym_t = quant_i8(sym, s_sym).transpose(1, 2)
         acc = int8_products(fq, sym_t)[:, : h * w]
         df = acc.float() * (s_f * s_sym)
-        return df.reshape(n, h, w, c).to(dtype), None
+        return df.reshape(n, h, w, c).to(dtype), None, None
+
+
+def gram_matrix_int8_rows(band_nhwc: torch.Tensor, bands, mesh=None) -> torch.Tensor:
+    """The whole image's int8 Gram (N, C, C) f32 from this rank's band of rows (``bands``,
+    a :class:`parallel.spatial.RowBands`), the same on every rank of ``bands.mesh``;
+    differentiable (STE, :class:`GramInt8Function`). ``mesh``: the ranks that hold
+    the batch between them (data and 'space'), for the dynamic scales; None means
+    ``bands.mesh``."""
+    return GramInt8Function.apply(band_nhwc, bands, bands.mesh if mesh is None else mesh)
 
 
 def gram_matrix_int8(features_nhwc: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Normalized Gram (N, C, C) f32 of NHWC features in int8, differentiable (STE).
-    With ``mesh`` both dynamic scales are the whole batch's over its ranks
-    (:func:`ops.qconv.absmax_scale`)."""
-    return GramInt8Function.apply(features_nhwc, mesh)
+    """Normalized Gram (N, C, C) f32 of NHWC features in int8, differentiable (STE): the
+    banded Gram of one band, the whole image. With ``mesh`` both dynamic scales are the
+    whole batch's over its ranks (:func:`ops.qconv.absmax_scale`)."""
+    whole = RowBands.split(Mesh(None, ("space",), (1,), 0, features_nhwc.device, None),
+                           features_nhwc.shape[1])
+    return GramInt8Function.apply(features_nhwc, whole, mesh)

@@ -12,6 +12,7 @@ from artist_style_transfer_tpu_torch.models.vgg import VGG_LAYER_NAMES
 from artist_style_transfer_tpu_torch.ops.gram import (
     gram_matrix,
     gram_matrix_int8,
+    gram_matrix_int8_rows,
     gram_matrix_rows,
 )
 from artist_style_transfer_tpu_torch.parallel.spatial import row_sum
@@ -73,15 +74,23 @@ def style_loss_gram_rows(
     gen_features: dict[str, tuple[torch.Tensor, object]],
     target_grams: dict[str, torch.Tensor],
     use_kernel: str | bool = "auto",
+    quantize: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """:func:`style_loss_gram` from this rank's bands of the four taps ({tap: (NHWC
     band, its :class:`parallel.spatial.RowBands`)}, as
     ``VGG16Features.forward_rows`` gives them): each tap's Gram by
-    :func:`ops.gram.gram_matrix_rows`, the same on every rank."""
+    :func:`ops.gram.gram_matrix_rows` (kernel K1), or with ``quantize`` the taps with
+    C >= 256 by :func:`ops.gram.gram_matrix_int8_rows`, whose scales are the max over
+    ``mesh``; the same on every rank."""
     loss = None
     for name in VGG_LAYER_NAMES:
         band, bands = gen_features[name]
-        term = mse(gram_matrix_rows(band, bands, use_kernel=use_kernel), target_grams[name])
+        if quantize and band.shape[-1] >= 256:
+            g = gram_matrix_int8_rows(band, bands, mesh)
+        else:
+            g = gram_matrix_rows(band, bands, use_kernel=use_kernel)
+        term = mse(g, target_grams[name])
         loss = term if loss is None else loss + term
     return loss
 

@@ -67,10 +67,12 @@ class Dequant(NamedTuple):
 
 
 def absmax_scale(t: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Per-tensor symmetric int8 scale: absmax / 127 (f32 scalar, never 0). With
-    ``mesh`` (a :class:`parallel.mesh.Mesh` whose ranks each hold a slice of one
-    batch) the absmax is the max over its ranks: the whole batch's."""
-    amax = t.float().abs().amax()
+    """Per-tensor symmetric int8 scale: absmax / 127 (f32 scalar, never 0), a constant
+    to autograd. With ``mesh`` (a :class:`parallel.mesh.Mesh` whose ranks each hold a
+    slice of one batch: a band of its rows too, over a 'space' axis) the absmax is the
+    max over its ranks: the whole batch's. An empty slice adds 0 and still joins."""
+    t = t.detach()
+    amax = t.float().abs().amax() if t.numel() else t.new_zeros((), dtype=torch.float32)
     if mesh is not None:
         mesh.all_reduce_(amax, "max")
     return amax.clamp_min(1e-30) / 127.0
@@ -243,6 +245,9 @@ def _dgrad(dy: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, in_hw: tuple[in
     k = wq.shape[2]
     dyp = dy.float() * sw.view(1, -1, 1, 1)
     s_dy = absmax_scale(dyp, mesh)
+    if dy.shape[2] == 0:  # an empty band: the scale's collective joined, no launch
+        return dy.new_zeros((dy.shape[0], wq.shape[1]) + tuple(in_hw)).contiguous(
+            memory_format=torch.channels_last)
     dq = quant_i8(dyp, s_dy).contiguous(memory_format=torch.channels_last)
     w_t = wq.flip(2, 3).transpose(0, 1).contiguous(memory_format=torch.channels_last)
     pads = [_dgrad_pad(i, o, k, stride, lhs_d, lo) for i, o in zip(in_hw, dy.shape[2:])]
@@ -254,13 +259,24 @@ def _dgrad(dy: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, in_hw: tuple[in
     return dx
 
 
+def _empty_out(x: torch.Tensor, wq: torch.Tensor, stride: int, lo: int, hi: int,
+               lhs_d: int) -> torch.Tensor:
+    """The output of an int8 conv of an empty band: no row, the conv's width, x's dtype."""
+    w_out = conv_out_size(x.shape[3], wq.shape[3], stride, lo, hi, lhs_d)
+    return x.new_zeros((x.shape[0], wq.shape[0], 0, w_out)).contiguous(
+        memory_format=torch.channels_last)
+
+
 class _FrozenInt8Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, sw, b, padding, stride, mesh):
-        s_in = absmax_scale(x, mesh)
+    def forward(ctx, x, wq, sw, b, padding, stride, mesh, s_in):
+        if s_in is None:
+            s_in = absmax_scale(x, mesh)
         ctx.save_for_backward(wq, sw)
         ctx.geometry = (tuple(x.shape[2:]), padding, stride)
         ctx.mesh = mesh
+        if x.shape[2] == 0:
+            return _empty_out(x, wq, stride, padding, padding, 1)
         return conv_i8(quant_i8(x, s_in), wq, stride, padding,
                        out=Dequant(s_in, sw, b, x.dtype))
 
@@ -269,7 +285,7 @@ class _FrozenInt8Conv(torch.autograd.Function):
         wq, sw = ctx.saved_tensors
         in_hw, padding, stride = ctx.geometry
         return (_dgrad(dy, wq, sw, in_hw, stride, padding, 1, ctx.mesh),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def conv2d_frozen_int8(
@@ -280,6 +296,7 @@ def conv2d_frozen_int8(
     padding: int = 1,
     stride: int = 1,
     mesh=None,
+    s_in: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Zero-padded conv of a FROZEN layer in int8 (JAX ``conv2d_frozen_int8``).
 
@@ -288,9 +305,12 @@ def conv2d_frozen_int8(
     data gradient as a second int8 conv (:func:`_dgrad`); ``wq``, ``sw`` and ``b``
     get none (the layer is frozen). Neither direction falls back to a real-dtype conv.
     With ``mesh``, both directions' dynamic scales are the whole batch's over its
-    ranks (:func:`absmax_scale`).
+    ranks (:func:`absmax_scale`). ``s_in`` gives the input scale instead: a banded
+    caller takes it over its own rows before it gathers the halo rows ``x`` holds.
+    An ``x`` of no row (an empty band) launches nothing and still joins the scales'
+    collectives.
     """
-    return _FrozenInt8Conv.apply(x, wq, sw, b, padding, stride, mesh)
+    return _FrozenInt8Conv.apply(x, wq, sw, b, padding, stride, mesh, s_in)
 
 
 def _weight_grad(xhat: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, stride: int, lo: int,
@@ -321,24 +341,30 @@ def _weight_grad(xhat: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, stride: 
 
 class _QatInt8Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, stride, lo, hi, lhs_d, mesh):
-        s_x = absmax_scale(x, mesh)
+    def forward(ctx, x, w, b, stride, lo, hi, lhs_d, mesh, s_x):
+        if s_x is None:
+            s_x = absmax_scale(x, mesh)
         xq = quant_i8(x, s_x).contiguous(memory_format=torch.channels_last)
         wq, sw = quant_weight(w)
         ctx.save_for_backward(xq, s_x, wq, sw, w)
         ctx.geometry = (stride, lo, hi, lhs_d, b.dtype)
         ctx.mesh = mesh
+        if x.shape[2] == 0:
+            return _empty_out(x, wq, stride, lo, hi, lhs_d)
         return conv_i8(xq, wq, stride, (lo, hi), lhs_d, out=Dequant(s_x, sw, b.float(), x.dtype))
 
     @staticmethod
     def backward(ctx, dy):
         xq, s_x, wq, sw, w = ctx.saved_tensors
         stride, lo, hi, lhs_d, b_dtype = ctx.geometry
-        xhat = (xq.float() * s_x).to(dy.dtype)
-        dw = _weight_grad(xhat, dy, w.to(dy.dtype), stride, lo, hi, lhs_d)
-        db = dy.float().sum((0, 2, 3))
+        if xq.shape[2] == 0:  # an empty band: its part of dw and db is 0
+            dw, db = torch.zeros_like(w), dy.new_zeros(w.shape[0], dtype=torch.float32)
+        else:
+            xhat = (xq.float() * s_x).to(dy.dtype)
+            dw = _weight_grad(xhat, dy, w.to(dy.dtype), stride, lo, hi, lhs_d)
+            db = dy.float().sum((0, 2, 3))
         dx = _dgrad(dy, wq, sw, tuple(xq.shape[2:]), stride, lo, lhs_d, ctx.mesh)
-        return dx, dw.to(w.dtype), db.to(b_dtype), None, None, None, None, None
+        return dx, dw.to(w.dtype), db.to(b_dtype), None, None, None, None, None, None
 
 
 def conv2d_qat_int8(
@@ -349,6 +375,7 @@ def conv2d_qat_int8(
     padding: int | tuple[int, int] = 0,
     lhs_dilation: int = 1,
     mesh=None,
+    s_x: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Int8 conv of a TRAINED layer, quantization-aware (JAX ``conv2d_qat_int8``).
 
@@ -361,7 +388,8 @@ def conv2d_qat_int8(
     f32 sum of ``dy``, both in their primals' dtypes; ``dx`` the int8 dgrad
     (:func:`_dgrad`), the forward's stride as its lhs dilation and its lhs dilation as
     its window stride. With ``mesh``, ``s_x`` and the dgrad's scale are the whole
-    batch's over its ranks (:func:`absmax_scale`).
+    batch's over its ranks (:func:`absmax_scale`). ``s_x`` given and an empty ``x`` as
+    for :func:`conv2d_frozen_int8`; an empty band's ``dw`` and ``db`` are 0.
     """
     lo, hi = _pads(padding)
-    return _QatInt8Conv.apply(x, w, b, stride, lo, hi, lhs_dilation, mesh)
+    return _QatInt8Conv.apply(x, w, b, stride, lo, hi, lhs_dilation, mesh, s_x)

@@ -25,22 +25,28 @@ none), then runs the caller's conv on the gathered rows:
 - a zero-padded transpose conv (lhs-dilated) runs on its band plus the input rows
   its output rows reach, with the single-device pads, and the output rows that
   belong to this rank are cropped out;
-- a 2x2 max pool (:func:`pool_rows`) gathers the row pairs of its output band.
+- a 2x2 max pool (:func:`pool_rows`) gathers the row pairs of its output band, and
+  the ResNet-50 stem's 3x3 stride-2 pool (:func:`max_pool_rows`) the rows of its
+  windows, with rows of the dtype's lowest value for the pad at the image's top and
+  bottom (pad mode "lowest": a max pool pads with -inf, not zeros).
 
 :func:`row_mean` and :func:`instance_norm_rows` all-reduce per-image, per-channel
-sums over every rank's own rows (halo rows never count); :func:`row_sum` sums a
-loss's terms over the bands. Every collective is the mesh's; the same code runs over
-NCCL and gloo.
+sums over every rank's own rows (halo rows never count), and :func:`row_max` takes
+the per-image, per-channel max the same way; :func:`row_sum` sums a loss's terms over
+the bands, :func:`int_sum_over_ranks` an int32 partial product. Every collective is
+the mesh's; the same code runs over NCCL and gloo.
 
 Each of them is differentiable, and the backward of a collective depends on who
 consumes its result: a fetched halo row's cotangent goes back to its owner (one
 ``all_gather`` of every rank's strip cotangents) and is added there; a statistic each
 rank consumes for its own band (the instance norm's sums) has its cotangent summed
-over the ranks; a sum every rank consumes whole (a loss) passes its cotangent through
-unchanged, since each rank's backward already carries the whole loss's. So each
-rank's parameter gradient is the part from its own rows, and their sum over the
-ranks is the whole image's. A rank whose band is empty still runs every node the
-others run (:func:`zeros_from`), so the ranks' backward collectives pair up.
+over the ranks; a value every rank consumes whole (a loss, the classifier head's
+pooled vector) passes its cotangent through unchanged, since each rank's backward
+already carries the whole loss's. So each rank's parameter gradient is the part from
+its own rows, and their sum over the ranks is the whole image's. A rank whose band is
+empty still runs every node the others run (:func:`zeros_from`, or the node itself
+where it joins a collective of its own), so the ranks' collectives pair up, forward
+and backward.
 """
 
 from __future__ import annotations
@@ -97,7 +103,7 @@ class _GatherRows(torch.autograd.Function):
     ``all_gather`` of every rank's strip cotangents, and adds it there."""
 
     @staticmethod
-    def forward(ctx, x, bands: RowBands, need: list[list[int]]):
+    def forward(ctx, x, bands: RowBands, need: list[list[int]], fill: float):
         mesh, me = bands.mesh, bands.mesh.rank
         a, b = bands.bounds()
         halo = 0
@@ -117,7 +123,7 @@ class _GatherRows(torch.autograd.Function):
             parts += [s.to(x.dtype) for s in mesh.all_gather(wire)]
         zero_row = h + (mesh.size * 2 * halo if halo > 0 else 0)
         if any(j < 0 for j in need[me]):
-            parts.append(x.new_zeros((n, c, 1, w)))
+            parts.append(x.new_full((n, c, 1, w), fill))
         idx = []
         for j in need[me]:
             if j < 0:
@@ -150,11 +156,12 @@ class _GatherRows(torch.autograd.Function):
                        for t in mesh.all_gather(strips))
             dx[:, :, :m] += mine[:, :, :m]
             dx[:, :, h - m:] += mine[:, :, 2 * halo - m:]
-        return dx.to(dtype).contiguous(memory_format=torch.channels_last), None, None
+        return dx.to(dtype).contiguous(memory_format=torch.channels_last), None, None, None
 
 
-def gather_rows(x: torch.Tensor, bands: RowBands, need: list[list[int]]) -> torch.Tensor:
-    """Rows ``need[me]`` (global indices, in order; -1 a row of zeros, a zero pad) of the
+def gather_rows(x: torch.Tensor, bands: RowBands, need: list[list[int]],
+                fill: float = 0.0) -> torch.Tensor:
+    """Rows ``need[me]`` (global indices, in order; -1 a row of ``fill``, a pad) of the
     NCHW tensor whose rows ``bands`` spreads, from this rank's ``x`` and its neighbours'
     boundary strips. Differentiable: each row's gradient returns to its owner.
 
@@ -162,7 +169,7 @@ def gather_rows(x: torch.Tensor, bands: RowBands, need: list[list[int]]) -> torc
     so every rank agrees on the strip height without a collective; a layer whose
     ranks need no row of another skips the exchange, forward and backward.
     """
-    return _GatherRows.apply(x, bands, need)
+    return _GatherRows.apply(x, bands, need, fill)
 
 
 class _ZerosFrom(torch.autograd.Function):
@@ -188,15 +195,22 @@ def zeros_from(src: torch.Tensor, shape: tuple[int, ...], dtype: torch.dtype | N
     return _ZerosFrom.apply(src, tuple(shape), dtype or src.dtype)
 
 
+def _lowest(dtype: torch.dtype) -> float:
+    return torch.finfo(dtype).min
+
+
 def conv_rows(x: torch.Tensor, bands: RowBands, k: int, stride: int, pad: int, conv,
-              cout: int, out_dtype: torch.dtype | None = None, pad_mode: str = "reflect"):
+              cout: int, out_dtype: torch.dtype | None = None, pad_mode: str = "reflect",
+              collective: bool = False):
     """A conv of kernel ``k``, ``stride`` and pad ``pad`` (both axes; ``pad_mode``
-    "reflect", the TransformerNet's, or "zeros", the VGG16's) over the image whose rows
-    ``bands`` spreads. ``conv(rows)`` runs it on the gathered rows (the H pad already in
-    them; it pads W by ``pad`` itself and no H). Returns this rank's output band and
-    the output's :class:`RowBands`."""
-    if pad_mode not in ("reflect", "zeros"):
-        raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
+    "reflect", the TransformerNet's, "zeros", the VGG16's and the ResNet-50's, or
+    "lowest", a max pool's) over the image whose rows ``bands`` spreads. ``conv(rows)``
+    runs it on the gathered rows (the H pad already in them; it pads W by ``pad``
+    itself and no H). ``collective``: ``conv`` joins collectives of its own (an int8
+    conv's dynamic scales), so it runs on an empty band too and returns its empty
+    output. Returns this rank's output band and the output's :class:`RowBands`."""
+    if pad_mode not in ("reflect", "zeros", "lowest"):
+        raise ValueError(f"pad_mode must be 'reflect', 'zeros' or 'lowest', got {pad_mode!r}")
     h_in = bands.height
     h_out = (h_in + 2 * pad - k) // stride + 1
     out = RowBands.split(bands.mesh, h_out)
@@ -211,21 +225,23 @@ def conv_rows(x: torch.Tensor, bands: RowBands, k: int, stride: int, pad: int, c
         oa, ob = out.bounds(r)
         need.append([row(q - pad) for q in range(oa * stride, (ob - 1) * stride + k)]
                     if ob > oa else [])
-    rows = gather_rows(x, bands, need)
+    rows = gather_rows(x, bands, need, _lowest(x.dtype) if pad_mode == "lowest" else 0.0)
     oa, ob = out.bounds()
-    if ob == oa:
+    if ob == oa and not collective:
         w_out = (x.shape[3] + 2 * pad - k) // stride + 1
         return zeros_from(rows, (x.shape[0], cout, 0, w_out), out_dtype or x.dtype), out
     return conv(rows), out
 
 
 def conv_transpose_rows(x: torch.Tensor, bands: RowBands, k: int, dilation: int,
-                        lo: int, hi: int, conv, cout: int, out_dtype: torch.dtype | None = None):
+                        lo: int, hi: int, conv, cout: int, out_dtype: torch.dtype | None = None,
+                        collective: bool = False):
     """A stride-1 conv of kernel ``k`` over the input lhs-dilated by ``dilation`` and
     zero-padded by ``(lo, hi)`` (a transpose conv's form) over the image whose rows
     ``bands`` spreads. ``conv(rows)`` runs the single-device op on a contiguous run of
-    input rows; the output rows of this rank are cropped from its result. Returns
-    this rank's output band and the output's :class:`RowBands`."""
+    input rows; the output rows of this rank are cropped from its result.
+    ``collective`` as for :func:`conv_rows`. Returns this rank's output band and the
+    output's :class:`RowBands`."""
     d, h_in = dilation, bands.height
     if hi < d - 1:
         raise ValueError(f"a banded transpose conv needs hi >= dilation - 1, got {hi}, {d}")
@@ -241,7 +257,7 @@ def conv_transpose_rows(x: torch.Tensor, bands: RowBands, k: int, dilation: int,
     rows = gather_rows(x, bands, need)
     oa, ob = out.bounds()
     w_out = (x.shape[3] - 1) * d + 1 + lo + hi - k + 1
-    if ob == oa:
+    if ob == oa and not collective:
         return zeros_from(rows, (x.shape[0], cout, 0, w_out), out_dtype or x.dtype), out
     y = conv(rows)
     first = spans[bands.mesh.rank] * d
@@ -264,6 +280,26 @@ def pool_rows(x: torch.Tensor, bands: RowBands) -> tuple[torch.Tensor, RowBands]
     if ob == oa:
         return zeros_from(rows, (x.shape[0], x.shape[1], 0, x.shape[3] // 2)), out
     return F.max_pool2d(rows, 2, 2), out
+
+
+def max_pool_rows(x: torch.Tensor, bands: RowBands) -> tuple[torch.Tensor, RowBands]:
+    """``F.max_pool2d(x, 3, 2, 1)`` (the ResNet-50 stem's pool) of the NCHW image whose
+    rows ``bands`` spreads: the rows of each output band's windows are gathered as a
+    conv's, with rows of the dtype's lowest value for the pad at the image's top and
+    bottom, and W is padded by the pool itself (with -inf). Returns this rank's output
+    band and its :class:`RowBands`."""
+    def pool(t):
+        return F.max_pool2d(t, 3, 2, (0, 1))
+
+    return conv_rows(x, bands, 3, 2, 1, pool, x.shape[1], pad_mode="lowest")
+
+
+def on_band(x: torch.Tensor, fn, cout: int) -> torch.Tensor:
+    """``fn(x)`` of a band-local op that keeps H and W (a 1x1 conv), or zeros standing for
+    it where this rank's band is empty (a conv refuses an empty input)."""
+    if x.shape[2] == 0:
+        return zeros_from(x, (x.shape[0], cout, 0, x.shape[3]))
+    return fn(x)
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -298,13 +334,63 @@ def row_sum(t: torch.Tensor, bands: RowBands) -> torch.Tensor:
                           bands.mesh, replicated=True)
 
 
-def row_mean(t: torch.Tensor, bands: RowBands) -> torch.Tensor:
+def row_mean(t: torch.Tensor, bands: RowBands, replicated: bool = False) -> torch.Tensor:
     """Per-image, per-channel mean over H and W of the NCHW image whose rows ``bands``
     spreads: this rank's sums over its own rows, all-reduced, over the global count.
-    Shape (N, C, 1, 1), in ``t``'s dtype; differentiable, its backward all-reduces the
-    cotangent over the ranks (each rank's band consumes the mean)."""
-    s = sum_over_ranks(t.sum(dim=(2, 3)), bands.mesh)
-    return (s / float(bands.height * t.shape[3]))[:, :, None, None]
+    Shape (N, C, 1, 1), in ``t``'s dtype; differentiable. Its backward all-reduces the
+    cotangent over the ranks where each rank's band consumes the mean (an instance
+    norm); ``replicated``: every rank consumes it whole (the classifier head's pool,
+    whose loss every rank holds), and the cotangent passes through. The sums run in f32
+    (f64 for f64)."""
+    acc = torch.promote_types(t.dtype, torch.float32)
+    s = sum_over_ranks(t.to(acc).sum(dim=(2, 3)), bands.mesh, replicated)
+    return (s / float(bands.height * t.shape[3])).to(t.dtype)[:, :, None, None]
+
+
+class _RowMax(torch.autograd.Function):
+    """:func:`row_max`: the forward's all-reduce MAX of each rank's per-image, per-channel
+    max over its rows; the backward splits the cotangent evenly among the positions that
+    tie for the max over every rank (an all-reduce SUM of each rank's tie counts), as
+    ``amax`` and ``jnp.max`` split it. The cotangent is the whole one on every rank (the
+    pooled vector's consumer is replicated), so it is not summed."""
+
+    @staticmethod
+    def forward(ctx, x, bands: RowBands):
+        n, c, h, _ = x.shape
+        wire = torch.promote_types(x.dtype, torch.float32)  # exact for bf16
+        local = (x.amax(dim=(2, 3)).to(wire) if h else
+                 x.new_full((n, c), _lowest(x.dtype), dtype=wire))
+        m = bands.mesh.all_reduce_(local, "max").to(x.dtype)
+        ctx.save_for_backward(x, m)
+        ctx.mesh = bands.mesh
+        return m
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        tied = x == m[:, :, None, None]
+        wire = torch.promote_types(x.dtype, torch.float32)
+        count = ctx.mesh.all_reduce_(tied.sum(dim=(2, 3)).to(wire))
+        dx = (g.to(wire) / count).to(g.dtype)[:, :, None, None] * tied
+        return dx.to(x.dtype).contiguous(memory_format=torch.channels_last), None
+
+
+def row_max(t: torch.Tensor, bands: RowBands) -> torch.Tensor:
+    """Per-image, per-channel max over H and W (``amax(dim=(2, 3))``, (N, C)) of the NCHW
+    image whose rows ``bands`` spreads, the same on every rank, for a consumer every
+    rank runs whole (:class:`_RowMax`). An empty band adds the dtype's lowest value and
+    no tie, and joins both collectives."""
+    return _RowMax.apply(t, bands)
+
+
+def int_sum_over_ranks(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """An int32 ``t`` summed over ``mesh``'s ranks, exactly (gloo and NCCL both reduce
+    int32): the int8 Gram's partial products. Not differentiable; the caller's autograd
+    function owns the backward."""
+    if t.dtype != torch.int32:
+        raise ValueError(f"int_sum_over_ranks sums int32, got {t.dtype}")
+    return mesh.all_reduce_(t.clone())
 
 
 def all_rows(y: torch.Tensor, bands: RowBands, dim: int) -> torch.Tensor:

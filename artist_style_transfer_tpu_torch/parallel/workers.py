@@ -43,8 +43,10 @@ def recorded_scales():
     """Inside, every dynamic int8 scale the port takes (:func:`ops.qconv.absmax_scale`:
     the int8 convs' forwards and STE backwards, the int8 Gram's) is appended, as a
     float, to the list this yields, in the order taken."""
+    from artist_style_transfer_tpu_torch.models import resnet_q, transformer_qat, vgg
     from artist_style_transfer_tpu_torch.ops import gram, qconv
 
+    takers = (qconv, gram, vgg, resnet_q, transformer_qat)  # the banded nets take their own
     real, seen = qconv.absmax_scale, []
 
     def recording(t, mesh=None):
@@ -52,11 +54,13 @@ def recorded_scales():
         seen.append(float(s))
         return s
 
-    qconv.absmax_scale = gram.absmax_scale = recording
+    for m in takers:
+        m.absmax_scale = recording
     try:
         yield seen
     finally:
-        qconv.absmax_scale = gram.absmax_scale = real
+        for m in takers:
+            m.absmax_scale = real
 
 
 def _sync(mesh: Mesh) -> None:
@@ -139,6 +143,30 @@ def recorded_k1():
         gram_kernel.gram_matrix_cuda = real
 
 
+@contextlib.contextmanager
+def recorded_k2():
+    """Inside, every launch of kernel K2 (:func:`ops.cuda.qconv_kernel.conv_i8_cuda`) is
+    counted under its shapes and arguments in the dict this yields, whose values are
+    ``[the first launch's arguments (the int8 codes as numpy, the rest as they were),
+    count]``: for holding K2 against its plain version at the shapes a path gave it."""
+    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
+
+    real, calls = qconv_kernel.conv_i8_cuda, {}
+
+    def recording(x, w, *rest):
+        key = (tuple(x.shape), tuple(w.shape)) + tuple(str(a) for a in rest)
+        if key not in calls:
+            calls[key] = [(x.cpu().numpy(), w.cpu().numpy()) + rest, 0]
+        calls[key][1] += 1
+        return real(x, w, *rest)
+
+    qconv_kernel.conv_i8_cuda = recording
+    try:
+        yield calls
+    finally:
+        qconv_kernel.conv_i8_cuda = real
+
+
 def space_mesh(mesh: Mesh, shape: tuple[int, int]) -> Mesh:
     """A ('data', 'space') mesh of ``shape`` over ``mesh``'s process group (every rank
     calls it: it creates the axes' groups)."""
@@ -176,7 +204,8 @@ class ArrayStream:
 
 def train_rank(mesh: Mesh, kwargs: dict, stream: dict | None = None,
                profile: bool = False, record_scales: bool = False,
-               shape: tuple[int, int] | None = None, record_k1: bool = False) -> dict:
+               shape: tuple[int, int] | None = None, record_k1: bool = False,
+               record_k2: bool = False) -> dict:
     """``train(mesh=mesh, **kwargs)`` on this rank: its per-epoch losses, the trained
     params, the files rank 0 wrote under ``model_dir`` and the time and launches.
     ``stream``: the arguments of a ``content_file_stream`` made on the rank, which
@@ -184,7 +213,8 @@ def train_rank(mesh: Mesh, kwargs: dict, stream: dict | None = None,
     every dynamic int8 scale the run took (:func:`recorded_scales`), under "scales".
     ``shape``: train over a ('data', 'space') mesh of that shape (:func:`space_mesh`)
     instead. ``record_k1``: also K1's launches by input shape (:func:`recorded_k1`),
-    under "k1_shapes", as (shape, dtype, count)."""
+    under "k1_shapes", as (shape, dtype, count); ``record_k2``: K2's by shape
+    (:func:`recorded_k2`), under "k2_calls", as [arguments, count]."""
     from artist_style_transfer_tpu_torch.data.stream import content_file_stream
     from artist_style_transfer_tpu_torch.train import train
 
@@ -193,13 +223,16 @@ def train_rank(mesh: Mesh, kwargs: dict, stream: dict | None = None,
     if stream is not None:
         kwargs = dict(kwargs, content_stream=content_file_stream(**stream))
     with (recorded_scales() if record_scales else contextlib.nullcontext([]) as scales,
-          recorded_k1() if record_k1 else contextlib.nullcontext({}) as k1):
+          recorded_k1() if record_k1 else contextlib.nullcontext({}) as k1,
+          recorded_k2() if record_k2 else contextlib.nullcontext({}) as k2):
         (model, losses), stats = _timed(
             mesh, lambda: train(mesh=mesh, device=mesh.device, **kwargs), profile)
     if record_scales:
         stats["scales"] = np.asarray(scales)
     if record_k1:
         stats["k1_shapes"] = [(s, d, n) for (s, d), n in k1.items()]
+    if record_k2:
+        stats["k2_calls"] = list(k2.values())
     files = []
     if kwargs.get("model_dir"):
         for root, _, names in os.walk(kwargs["model_dir"]):
@@ -253,31 +286,40 @@ def step_trajectory(mesh: Mesh, setup: dict) -> dict:
             "params": params_numpy(model), "adam": np.concatenate(state)}
 
 
-def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict) -> dict:
-    """One 'cycle' step of the global batch ``setup["content"]`` over a ('data',
-    'space') mesh of ``shape`` (None: one process, no mesh, on the rank's device;
-    ``setup``: ``model``, ``vgg``, ``paintings``, ``content``, ``batch_size``,
-    ``content_weight``, ``style_weight``, ``step``), f32: the
-    synced [content, style, total] losses and every parameter's synced gradient, as
-    numpy (Adam with no weight decay, which leaves ``.grad`` as the sync made it). On
-    CUDA also ``peak_mem_gib``: the step's peak of allocated memory above what was
-    allocated before it (the targets and the content features are built first)."""
+def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict,
+                    record_scales: bool = False) -> dict:
+    """One step of the global batch ``setup["content"]`` over a ('data', 'space') mesh of
+    ``shape`` (None: one process, no mesh, on the rank's device; ``setup``: ``model``,
+    ``vgg`` (a quantized one too), ``paintings``, ``content``, ``batch_size``,
+    ``content_weight``, ``style_weight``, ``step``, and optionally ``mode`` ('cycle' by
+    default), ``classifier`` (a quantized one too), ``qat`` and ``quantize_gram``), f32:
+    the synced [content, style, total] losses and every parameter's synced gradient, as
+    numpy (Adam with no weight decay, which leaves ``.grad`` as the
+    sync made it). ``record_scales``: also every dynamic int8 scale the step took, in
+    order (:func:`recorded_scales`), under "scales". On CUDA also ``peak_mem_gib``: the
+    step's peak of allocated memory above what was allocated before it (the targets and
+    the content features are built first)."""
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19
     from artist_style_transfer_tpu_torch.train import loop, styles
 
     if shape is not None:
         mesh = space_mesh(mesh, shape)
     dev = mesh.device
+    mode = setup.get("mode", "cycle")
     model = copy.deepcopy(setup["model"]).to(dev)
     vgg = _on(setup["vgg"], dev)
+    clf = None if setup.get("classifier") is None else _on(setup["classifier"], dev)
     content = torch.as_tensor(setup["content"]).to(dev)
     b = setup["batch_size"]
-    targets = styles.build_style_targets("cycle", vgg, "X", paintings=setup["paintings"],
-                                         batch_size=b)
+    targets = styles.build_style_targets(mode, vgg, ARTISTS_19[0],
+                                         paintings=setup.get("paintings"), batch_size=b)
     opt, sched = loop.make_optimizer(model.parameters(), 0.0, 0.0, 1, 1, 1)
-    fns = loop.make_step_fns("cycle", model, vgg, targets, opt, sched,
+    fns = loop.make_step_fns(mode, model, vgg, targets, opt, sched,
                              content_weight=setup["content_weight"],
                              style_weight=setup["style_weight"], batch_size=b,
-                             num_content=content.shape[0],
+                             num_content=content.shape[0], classifier=clf,
+                             qat=setup.get("qat", False),
+                             quantize_gram=setup.get("quantize_gram", "auto"),
                              mesh=None if shape is None else mesh)
     r22 = loop.precompute_content_relu2_2(vgg, content)
     out = {}
@@ -285,10 +327,13 @@ def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict) -> d
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    losses = fns.step_fn(content, r22, setup["step"])
+    with recorded_scales() if record_scales else contextlib.nullcontext([]) as scales:
+        losses = fns.step_fn(content, r22, setup["step"])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    if record_scales:
+        out["scales"] = np.asarray(scales)
     return {"losses": losses.cpu().numpy().astype(np.float64),
             "grads": {k: p.grad.detach().cpu().numpy().copy()
                       for k, p in model.named_parameters()}, **out}
@@ -333,27 +378,12 @@ def stylize_rows_rank(mesh: Mesh, model, image: np.ndarray, clip: bool,
         stylize_spatial_int8,
     )
     from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
-    from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
 
     model = _on(model, mesh.device)
     fn = stylize_spatial_int8 if isinstance(model, QuantizedTransformerNet) else stylize_spatial
-    calls: dict[tuple, list] = {}
-    real = qconv_kernel.conv_i8_cuda
-
-    def recording(x, w, *rest):
-        key = (tuple(x.shape), tuple(w.shape)) + tuple(str(a) for a in rest)
-        if key not in calls:
-            calls[key] = [(x.cpu().numpy(), w.cpu().numpy()) + rest, 0]
-        calls[key][1] += 1
-        return real(x, w, *rest)
-
-    if record_k2:
-        qconv_kernel.conv_i8_cuda = recording
-    try:
+    with recorded_k2() if record_k2 else contextlib.nullcontext({}) as calls:
         y, stats = _timed(mesh, lambda: fn(model, image, mesh, clip=clip, device=mesh.device),
                           profile)
-    finally:
-        qconv_kernel.conv_i8_cuda = real
     out = {"out": y.float().cpu().numpy() if y.dtype == torch.bfloat16 else y.cpu().numpy(),
            **stats}
     if record_k2:

@@ -36,13 +36,13 @@ checkpoints, exports, previews, ``style.jpg`` and ``metrics.jsonl`` while the ot
 wait at a barrier; ``model_dir`` must be a directory every rank sees (a resume
 reads it on each). A streamed corpus yields each rank's slice of every global
 batch (``content_file_stream`` takes the ranks from the process group). A
-('data', 'space') mesh (``make_mesh((d, s), ("data", "space"))``) trains the four
-Gram modes with each image's rows spread over the 'space' ranks
+('data', 'space') mesh (``make_mesh((d, s), ("data", "space"))``) trains every mode,
+with the int8 options too, with each image's rows spread over the 'space' ranks
 (:mod:`train.loop`); the style targets stay whole on every rank, as JAX's are
-replicated. Over a 'space' axis longer than 1, 'classifier' mode, the int8 options
-and a batch fold raise ``NotImplementedError`` (ROADMAP item 12c), and a mesh whose
-shape needs more ranks than its process group holds raises ``ValueError``. The
-training CLI builds no such mesh: JAX's has no 'space' option.
+replicated, and a batch fold runs the direct banded path, as JAX folds nothing under
+a mesh of more than one device. A mesh whose shape needs more ranks than its process
+group holds raises ``ValueError``. The training CLI builds no such mesh: JAX's has
+no 'space' option.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ from artist_style_transfer_tpu_torch.models.vgg import (
     quantize_vgg16_loss,
 )
 from artist_style_transfer_tpu_torch.parallel.distributed import make_global
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, spatial_size, train_mesh
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, train_mesh
 from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
 from artist_style_transfer_tpu_torch.train.loop import (
     COMPUTE_DTYPES,
@@ -97,27 +97,13 @@ def _vgg_layers(quantize_loss: bool | str | int) -> str | int:
     return "deep" if quantize_loss is True else quantize_loss
 
 
-def _check_options(*, mesh, style_method, qat, quantize_loss, quantize_gram,
-                   fold_batch) -> None:
-    """Refuse, before anything is written, what JAX's ``train()`` refuses, what the
-    'space' axis does not run yet (ROADMAP item 12c), and a mesh larger than its
-    process group."""
+def _check_options(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> None:
+    """Refuse, before anything is written, what JAX's ``train()`` refuses and a mesh
+    larger than its process group."""
     if fold_batch not in _FOLD_BATCH:
         raise ValueError(f"fold_batch must be one of {_FOLD_BATCH}, got {fold_batch!r}")
     check_int8_options(qat, quantize_gram)
     first_q = first_quantized_conv(_vgg_layers(quantize_loss)) if quantize_loss else None
-    if spatial_size(mesh) > 1:
-        unported = [name for name, on in (
-            ("style_method='classifier'", style_method == "classifier"),
-            ("quantize_loss", bool(quantize_loss)), ("qat", bool(qat)),
-            ("quantize_gram", quantize_gram is True),
-            ("fold_batch", fold_batch in (True, "vgg"))) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} over a 'space' axis (the rows of each image over "
-                "the ranks): the banded step runs the four Gram modes with the f32 or bf16 "
-                "nets; 'classifier' mode, the int8 options and the batch fold over 'space' "
-                "come with ROADMAP Queue 1 item 12c")
     train_mesh(mesh)
     if first_q is not None and first_q < 4 and fold_batch in (True, "vgg"):
         raise NotImplementedError(  # JAX train/loop.py:301-309
@@ -217,9 +203,8 @@ def train(
     if style_method not in MODES:
         print("enter valid style method!")  # train_cnn.py:274
         return 0
-    _check_options(mesh=mesh, style_method=style_method, qat=qat,
-                   quantize_loss=quantize_loss, quantize_gram=quantize_gram,
-                   fold_batch=fold_batch)
+    _check_options(mesh=mesh, qat=qat, quantize_loss=quantize_loss,
+                   quantize_gram=quantize_gram, fold_batch=fold_batch)
     # Before anything is written: an artist outside the classifier's 19 raises.
     artist_index = ARTISTS_19.index(artist) if style_method == "classifier" else None
     dev = resolve_device(device)

@@ -51,21 +51,24 @@ What carries over from the JAX loop, and what changes:
   each device's shard.
 
 - A mesh with a 'space' axis (``make_mesh((d, s), ("data", "space"))``, JAX's
-  ``batch_sharding``: NHWC axis 0 over 'data', the image rows over 'space') trains the
-  four Gram modes with each image's rows spread over the 'space' ranks: each rank
-  holds a band of every activation of the TransformerNet and the VGG16
+  ``batch_sharding``: NHWC axis 0 over 'data', the image rows over 'space') trains
+  every mode with each image's rows spread over the 'space' ranks: each rank holds a
+  band of every activation of the TransformerNet (or its QAT forward), the VGG16 (or
+  its int8 extractor) and, in 'classifier' mode, the ResNet-50 (or its int8 form)
   (``forward_rows``: halo rows fetched before each conv and pool, instance-norm
-  statistics over the whole image, :mod:`parallel.spatial`), and the Grams and the
+  statistics and the classifier head's pools over the whole image,
+  :mod:`parallel.spatial`). The Grams (the int8 Gram's int32 products too) and the
   content loss are summed over the bands (:func:`ops.losses.style_loss_gram_rows`,
-  :func:`ops.losses.content_loss_rows`), so every 'space' rank holds its data slice's
-  whole loss. Each rank's parameter gradient is the part from its rows: the sync sums
-  them over every rank and divides by d, the losses by d·s. A full batch shards over
-  the d data slices (a batch of one image over (1, s) is banded); the ragged tail is
-  banded when the mesh's size divides it, else it runs whole on every rank (JAX's
-  ``tail_mesh``); a streamed batch (each rank's slice of the global batch) is
-  gathered over its 'space' line into the data slice first, and its content relu2_2
-  computed banded. The 'space' path takes the f32 or bf16 nets, not the int8 ones or
-  'classifier' mode (refused by ``train()``, ROADMAP item 12c).
+  :func:`ops.losses.content_loss_rows`), and the classifier's logits are the same on
+  every rank, so every 'space' rank holds its data slice's whole loss. Every dynamic
+  int8 scale is the max over all d·s ranks of their own rows. Each rank's parameter
+  gradient is the part from its rows: the sync sums them over every rank and divides
+  by d, the losses by d·s. A full batch shards over the d data slices (a batch of one
+  image over (1, s) is banded); the ragged tail is banded when the mesh's size
+  divides it, else it runs whole on every rank (JAX's ``tail_mesh``); a streamed
+  batch (each rank's slice of the global batch) is gathered over its 'space' line
+  into the data slice first, and its content relu2_2 computed banded. ``fold_batch``
+  folds nothing here either (JAX folds nothing under a mesh of more than one device).
 
 In the Gram modes every Gram of the step goes through
 :func:`ops.losses.style_loss_gram`, which runs the Hopper Gram kernel on a
@@ -89,7 +92,11 @@ from torch.utils.checkpoint import checkpoint
 from artist_style_transfer_tpu_torch.models.resnet import ResNet50Classifier
 from artist_style_transfer_tpu_torch.models.resnet_q import classifier_is_quantized
 from artist_style_transfer_tpu_torch.models.transformer import RowsForward, TransformerNet
-from artist_style_transfer_tpu_torch.models.transformer_qat import QAT_LAYERS, QATForward
+from artist_style_transfer_tpu_torch.models.transformer_qat import (
+    QAT_LAYERS,
+    QATForward,
+    QATRowsForward,
+)
 from artist_style_transfer_tpu_torch.models.vgg import VGG16Features, vgg_is_quantized
 from artist_style_transfer_tpu_torch.ops.image import (
     bgr_to_rgb,
@@ -193,9 +200,7 @@ def make_step_fns(
     ``"all"``) picks the int8 convs of the TransformerNet's QAT forward;
     ``quantize_gram`` (``"auto"``, True, False) the int8 Gram of the deep taps.
     ``mesh`` makes the step data-parallel over its ranks, and with a 'space' axis
-    spreads each image's rows over that axis's ranks (the module docstring); the
-    int8 nets and 'classifier' mode with a 'space' axis longer than 1 raise
-    ``NotImplementedError``.
+    spreads each image's rows over that axis's ranks (the module docstring).
     """
     train_mesh(mesh)
     if mode == "classifier" and (classifier is None or targets.labels is None):
@@ -224,16 +229,13 @@ def make_step_fns(
                  clf_compute is not None and classifier_is_quantized(clf_compute))
     num_cycle = targets.num_cycle if mode == "cycle" else 0
     # A mesh with a 'space' axis runs the banded step (a (d, 1) one too: its bands are
-    # whole images, with no exchange), where its nets have a banded forward.
-    banded = (mesh is not None and "space" in mesh.axis_names and mode != "classifier"
-              and not any(int8_nets) and not quantize_gram)
-    if spatial_size(mesh) > 1 and not banded:
-        raise NotImplementedError(
-            "training over a 'space' axis runs the four Gram modes with the f32 or bf16 "
-            "nets; 'classifier' mode and the int8 options over 'space' come with ROADMAP "
-            "Queue 1 item 12c")
+    # whole images, with no exchange).
+    banded = mesh is not None and "space" in mesh.axis_names
     space = mesh.axis_mesh("space") if banded else None
-    rows_forward = RowsForward(model) if banded else None
+    rows_forward = None
+    if banded:
+        rows_forward = (QATRowsForward(model, "trunk" if qat is True else qat) if qat
+                        else RowsForward(model))
 
     def remat_or_call(fn, *args, **kwargs):
         if remat:
@@ -267,18 +269,33 @@ def make_step_fns(
 
     def loss_rows(params, band, bands, content_band, grams, step):
         # This rank's band of rows of its data slice: the same total and terms on every
-        # rank of its 'space' line, and the part of the gradients from its rows.
+        # rank of its 'space' line, and the part of the gradients from its rows. The
+        # int8 nets' scales are the max over every rank of the mesh.
+        qat_kw, vgg_kw, clf_kw = ({"mesh": mesh} if q else {} for q in int8_nets)
         if cdtype != torch.float32:
             params = {k: v.to(cdtype) for k, v in params.items()}
             band = band.to(cdtype)
-        gen, gen_bands = remat_or_call(functional_call, rows_forward, params, (band, bands))
-        feats = remat_or_call(vgg_compute.forward_rows, vgg_caffe_preprocess(gen), gen_bands)
-        gen_r22, r22_bands = feats["relu2_2"]
+        gen, gen_bands = remat_or_call(functional_call, rows_forward, params, (band, bands),
+                                       qat_kw)
+        if mode == "classifier":
+            gen_r22, r22_bands = remat_or_call(
+                vgg_compute.forward_rows, vgg_caffe_preprocess(gen), gen_bands,
+                just_content=True, **vgg_kw)
+            # Elementwise, so band-local; the logits are the same on every rank.
+            logits = clf_compute.forward_rows(
+                torchvision_normalize(bgr_to_rgb(gen) / 255.0, reference_typo_stats),
+                gen_bands, **clf_kw)
+            s_loss = style_weight * cross_entropy_loss(logits, targets.labels[: band.shape[0]])
+        else:
+            feats = remat_or_call(vgg_compute.forward_rows, vgg_caffe_preprocess(gen),
+                                  gen_bands, **vgg_kw)
+            gen_r22, r22_bands = feats["relu2_2"]
+            s_loss = style_weight * style_loss_gram_rows(
+                feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel,
+                quantize=bool(quantize_gram), mesh=mesh)
         if content_band.shape[1] != gen_r22.shape[1]:
             raise ValueError(f"the content relu2_2 band {tuple(content_band.shape)} is not "
                              f"the generated one's {tuple(gen_r22.shape)}")
-        s_loss = style_weight * style_loss_gram_rows(
-            feats, select_step_grams(grams, step, num_cycle), use_kernel=use_kernel)
         c_loss = content_weight * content_loss_rows(gen_r22, content_band, r22_bands)
         return c_loss + s_loss, (c_loss, s_loss)
 
@@ -341,7 +358,7 @@ def make_step_fns(
                 bands = RowBands.split(space, batch.shape[1])
                 batch = rows_of(batch, bands)
                 r22, _ = vgg.forward_rows(vgg_caffe_preprocess(batch), bands,
-                                          just_content=True)
+                                          just_content=True, mesh=space)
             else:
                 r22 = vgg(vgg_caffe_preprocess(batch), just_content=True)
         return step_fn(batch, r22 if cdtype == torch.float32 else r22.to(cdtype), step,

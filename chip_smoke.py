@@ -186,10 +186,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``content_stream=`` (within rtol 1e-3 of the resident one), one 1024x1024, B=1 step
     (within rtol 1e-4 of the one process's, and each rank's peak memory over the step
     beside the one process's); 4 gloo ranks with mesh
-    (2, 2): the f32 epoch again; then K1 against its plain version and an f64 product
-    at every band shape the ranks launched it at (``space_train_k1`` lines: warm and
-    cold times, the plain version's, ``torch.bmm``'s, the bound); wall seconds and rank
-    0's ``gloo:`` host ms;
+    (2, 2): the f32 epoch again. Then 'classifier' mode and the int8 options over the
+    axis (the ResNet-50 with 19 classes too): 2 gloo ranks with mesh (1, 2), one epoch
+    each of 'classifier' f32 (within rtol 1e-4 of the one-process ``train()``) and bf16
+    (finite), 'cycle' with ``quantize_loss=True``, with ``qat=True, quantize_gram=True``
+    (the int8 Gram on the real VGG16's taps) and with ``qat="all"``, and 'classifier'
+    through ``quantize_classifier`` with ``quantize_loss=True`` (the int8 runs within
+    rtol 1e-2 of one process), and one 'classifier' f32 step at 1024x1024, B=1 (within
+    rtol 1e-4; each rank's peak memory beside the one process's); 4 gloo ranks with
+    mesh (2, 2): the ``qat``/``quantize_gram`` and the int8 'classifier' runs; every
+    run's ranks bit-identical, params, losses and dynamic int8 scales; K1 and K2
+    launches a rank counted (K2 12 a step + 6 for ``quantize_loss``, 26, 32 and 104;
+    K1 2, 2 and 4 a step + 4; 0 in 'classifier' mode). Then K1 against its plain
+    version and an f64 product at every band shape the ranks launched it at
+    (``space_train_k1`` lines: warm and cold times, the plain version's,
+    ``torch.bmm``'s, the bound), and K2 against its plain version at every shape the
+    int8 runs' ranks launched it at, forward and dgrad (``qconv`` lines with path
+    ``train_space``, warm times); wall seconds and rank 0's ``gloo:`` host ms;
 17. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
     batches' shapes (``stylize_int8`` 512x512 and the int8 classify 256x256 at B = 1, 2
     and 8), the sharded int8 eval's (N=2) and one DP int8 training step's (N=2), each
@@ -342,6 +355,11 @@ PAR_CLF_RTOL = 5e-3
 SPACE_EPOCHS = 1  # phase space_train: 'cycle' at 224², global B=4, 16 images: 4 steps
 SPACE_MEM_SIZE = 1024  # one step at 1024², B=1: each rank's peak memory against one process's
 SPACE_STREAM_RTOL = 1e-3  # the streamed bar (PERF.md §2)
+SPACE_INT8_RTOL = 1e-2  # the banded int8 runs' per-step losses against one process (PERF.md §6)
+# K2 launches a step of each banded int8 run (forward + STE dgrad on every rank's band), and
+# its targets' (the int8 VGG16's forward of the 8 paintings): phase int8_train's counts.
+SPACE_K2_STEP = {"qloss": 2 * QCONV_VGG_DEEP, "qat_qgram": 2 * QCONV_QAT["trunk"],
+                 "qat_all": 2 * QCONV_QAT["all"], "qclf": 2 * QCONV_RESNET}
 SERVE_ROW_BATCHES = (1, 2, 8)  # phase kernel_rows: K2 at the serve batches (4 is phase int8's)
 # Phase diffusion at the diffusion CLI's defaults (JAX diffusion/cli.py:20-29).
 DIFF_SIZE = 64
@@ -3093,10 +3111,11 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
     within rtol 1e-4 of the one process, the ranks' params bit-identical), two bf16
     epochs (finite, falling), a streamed epoch through ``content_stream=`` (within rtol
     1e-3 of the resident one) and the 1024² step (each rank's peak memory); then 4 gloo
-    ranks with mesh (2, 2), one launch: the f32 epoch again. K1's launches a rank are
+    ranks with mesh (2, 2), one launch: the f32 epoch again. Then 'classifier' mode and
+    the int8 options over the axis (:func:`space_train_more`). K1's launches a rank are
     counted, and K1 is held against its plain version at every band shape the ranks
     launched it at. ``device="cpu"`` (with small sizes) rehearses it on the CPU over
-    gloo, without K1."""
+    gloo, without K1 and K2."""
     import torch.distributed as dist
 
     from artist_style_transfer_tpu_torch.models.transformer import init_transformer
@@ -3175,6 +3194,7 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
         epoch_secs = {name: [e["secs"] for e in read_jsonl(os.path.join(
             run_dir(name), "A", "cycle", "metrics.jsonl")) if e["event"] == "epoch"]
             for name in ("one", "solo", "s12", "s22", "stream")}
+        more = space_train_more(kw, run_dir, steps, peaks, smi, device, mem_size)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3210,6 +3230,10 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
                     shapes[(tuple(shape), dtype)] = shapes.get((tuple(shape), dtype), 0) + count
     require(not on_card or len(shapes) == 12,
             f"space_train: K1 ran at {len(shapes)} band shapes, not 4 taps x 3 runs")
+    # The int8 runs' band shapes too, where the runs above did not launch K1 at them.
+    new_k1 = [k for k in more["k1_shapes"] if k not in shapes]
+    for k, n in more["k1_shapes"].items():
+        shapes[k] = shapes.get(k, 0) + n
     k1_rows = {}
     if on_card:
         for (shape, dtype), count in sorted(shapes.items()):
@@ -3234,12 +3258,147 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
          bf16_epoch_totals=bf16[:, 2].tolist(), k1_launches_rank0={
              "s12": two[0][0]["launches"]["k1"], "s22": four[0][0]["launches"]["k1"],
              "s12_bf16": two[0][1]["launches"]["k1"]},
-         k1_band_shapes=len(shapes), peak_mem_gib=mem, mem_size=mem_size, timing=timing,
+         k1_band_shapes=len(shapes), k1_new_band_shapes=len(new_k1), peak_mem_gib=mem,
+         mem_size=mem_size, timing=timing,
          step_taps_1x2=step_taps, card=smi)
     return {"k1_launches": {"train_space": two[0][0]["launches"]["k1"],
                             "train_space_2x2": four[0][0]["launches"]["k1"],
-                            "train_space_bf16": two[0][1]["launches"]["k1"]},
+                            "train_space_bf16": two[0][1]["launches"]["k1"],
+                            **more["k1_launches"]},
+            "k2_launches": more["k2_launches"], "k2": more["k2"],
             "step_taps": step_taps, "k1_rows": k1_rows}
+
+
+def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str,
+                     device: str, mem_size: int) -> dict:
+    """Phase space_train's runs of 'classifier' mode and the int8 options over the
+    'space' axis, at full width (the TransformerNet, the VGG16 to relu4_3, the ResNet-50
+    with 19 classes; ``kw`` the phase's 'cycle' run): one launch of 2 gloo ranks on
+    cuda:0 with mesh (1, 2), one epoch each of (a) 'classifier' f32, (b) 'classifier'
+    bf16, (c) 'cycle' ``quantize_loss=True``, (d) 'cycle' ``qat=True,
+    quantize_gram=True`` (the int8 Gram on the real VGG16's taps), (e) 'cycle'
+    ``qat="all"``, (f) 'classifier' through ``quantize_classifier`` with
+    ``quantize_loss=True``, and (g) one 'classifier' f32 step at 1024², B=1 (each rank's
+    peak memory); then one launch of 4 gloo ranks with mesh (2, 2), (d) and (f). Each run
+    against the one-process ``train()`` in this process: f32 per-step losses within
+    rtol 1e-4, the int8 runs' within ``SPACE_INT8_RTOL``, bf16 finite; the ranks'
+    params, losses and every dynamic int8 scale bit-identical; K1's and K2's launches a
+    rank counted; K2 held against its plain version at every shape the ranks launched
+    it at (the band shapes, forward and dgrad); returns K1's band shapes, which the
+    phase checks where its earlier runs did not launch them."""
+    from artist_style_transfer_tpu_torch.models.resnet import init_classifier
+    from artist_style_transfer_tpu_torch.models.resnet_q import quantize_classifier
+    from artist_style_transfer_tpu_torch.models.transformer import init_transformer
+    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.train import train
+
+    on_card = device == "cuda"
+    clf = init_classifier(torch.Generator().manual_seed(3))
+    ckw = dict(kw, style_method="classifier", artist=CLF_ARTIST, classifier=clf)
+    runs = {"clf": ckw, "clf_bf16": dict(ckw, compute_dtype="bfloat16"),
+            "qloss": dict(kw, quantize_loss=True),
+            "qat_qgram": dict(kw, qat=True, quantize_gram=True),
+            "qat_all": dict(kw, qat="all"),
+            "qclf": dict(ckw, classifier=quantize_classifier(clf), quantize_loss=True)}
+    mode_of = {name: r["style_method"] for name, r in runs.items()}
+    artist_of = {name: r["artist"] for name, r in runs.items()}
+    rng = np.random.default_rng(13)
+    mem_setup = dict(mode="classifier", model=init_transformer(torch.Generator().manual_seed(0)),
+                     vgg=kw["vgg"], classifier=clf,
+                     content=rng.uniform(0, 255, (1, mem_size, mem_size, 3)).astype(np.float32),
+                     batch_size=1, content_weight=17.0, style_weight=25.0, step=0)
+
+    def records(name: str, where: str) -> np.ndarray:
+        return step_records(run_dir(f"{where}_{name}"), mode_of[name], artist_of[name])
+
+    t0 = time.perf_counter()
+    for name, r in runs.items():
+        train(device=device, model_dir=run_dir(f"one_{name}"), **r)
+    one_s = time.perf_counter() - t0
+    mem_one = workers.space_step_rank(make_mesh(device=device), None, mem_setup)
+
+    def jobs(names, where, shape):
+        return [(workers.train_rank, (dict(runs[n], model_dir=run_dir(f"{where}_{n}")),),
+                 {"shape": shape, "record_k1": True, "record_k2": on_card,
+                  "record_scales": n not in ("clf", "clf_bf16")}) for n in names]
+
+    dev = "cuda:0" if on_card else "cpu"
+    t0 = time.perf_counter()
+    two = launch(workers.run_jobs, 2, jobs(list(runs), "s12", (1, 2))
+                 + [(workers.space_step_rank, ((1, 2), mem_setup), {})], backend="gloo",
+                 device=dev, threads=None if on_card else 2, timeout_s=900)
+    two_s = time.perf_counter() - t0
+    four_names = ("qat_qgram", "qclf")
+    t0 = time.perf_counter()
+    four = launch(workers.run_jobs, 4, jobs(four_names, "s22", (2, 2)), backend="gloo",
+                  device=dev, threads=None if on_card else 1, timeout_s=900)
+    four_s = time.perf_counter() - t0
+
+    rels = {}
+    for name in runs:
+        rtol = (SPACE_INT8_RTOL if name.startswith("q")
+                else 1e-4 if name == "clf" else float("inf"))
+        rels[f"s12_{name}"] = par_trajectory(f"space (1, 2) {name}", records(name, "s12"),
+                                             records(name, "one"), rtol)
+    for name in four_names:
+        rels[f"s22_{name}"] = par_trajectory(f"space (2, 2) {name}", records(name, "s22"),
+                                             records(name, "one"), SPACE_INT8_RTOL)
+    rels["mem_step"] = par_trajectory("space (1, 2) 'classifier' 1024² step",
+                                      two[0][-1]["losses"], mem_one["losses"], 1e-4)
+    k1_want = {"qloss": 4 + 2 * steps, "qat_qgram": 4 + 2 * steps, "qat_all": 4 + 4 * steps}
+    k1_launches, k2_launches, k2_calls, k1_shapes = {}, {}, [], {}
+    for label, ranks, names in (("s12", two, list(runs)), ("s22", four, four_names)):
+        for i, name in enumerate(names):
+            for other in ranks[1:]:
+                same = (np.array_equal(other[i]["losses"], ranks[0][i]["losses"])
+                        and np.array_equal(other[i].get("scales", []),
+                                           ranks[0][i].get("scales", []))
+                        and all(np.array_equal(v, ranks[0][i]["params"][k])
+                                for k, v in other[i]["params"].items()))
+                require(same, f"space_train: {label} {name}: the ranks' params, losses or "
+                              "int8 scales differ")
+            k1 = [r[i]["launches"]["k1"] for r in ranks]
+            k2 = [r[i]["launches"]["k2"] for r in ranks]
+            want1 = k1_want.get(name, 0) if on_card else 0
+            want2 = (SPACE_K2_STEP.get(name, 0) * steps
+                     + (QCONV_VGG_DEEP if name == "qloss" else 0)) if on_card else 0
+            require(all(n == want1 for n in k1) and all(n == want2 for n in k2),
+                    f"space_train: {label} {name}: K1 {k1} (not {want1}) and K2 {k2} (not "
+                    f"{want2}) launches by rank")
+            k1_launches[f"train_space_{name}" + ("_2x2" if label == "s22" else "")] = k1[0]
+            k2_launches[f"train_space_{name}" + ("_2x2" if label == "s22" else "")] = k2[0]
+            for r in ranks:
+                if name.startswith("q"):
+                    require(len(r[i]["scales"]) > 0, f"space_train: {label} {name}: no scale")
+                for (xn, wn, *rest), count in r[i].get("k2_calls", []):
+                    x = torch.from_numpy(xn).cuda().contiguous(memory_format=torch.channels_last)
+                    w = torch.from_numpy(wn).cuda().contiguous(memory_format=torch.channels_last)
+                    k2_calls += [(x, w, *rest)] * count
+                for shape, dtype, count in r[i].get("k1_shapes", []):
+                    if shape[1] < shape[2]:  # a band, not a whole painting
+                        key = (tuple(shape), dtype)
+                        k1_shapes[key] = k1_shapes.get(key, 0) + count
+    bf16 = records("clf_bf16", "s12")
+    require(bool(np.isfinite(bf16).all()), "space_train: 'classifier' bf16 losses not finite")
+    k2 = (check_qconv_shapes(k2_calls, "train_space", peaks, cold=False) if on_card
+          else {"shapes": 0, "launches": 0, "s32_max_abs_err": 0})
+    emit("space_train_more", one_process_s=one_s, two_rank_launch_s=two_s,
+         four_rank_launch_s=four_s, **rels,
+         epoch_secs={f"{label}_{name}": [e["secs"] for e in read_jsonl(os.path.join(
+             run_dir(f"{label}_{name}"), artist_of[name], mode_of[name], "metrics.jsonl"))
+             if e["event"] == "epoch"] for label, names in (("one", runs), ("s12", runs),
+                                                            ("s22", four_names))
+             for name in names},
+         scales_a_rank={f"s12_{n}": len(two[0][i].get("scales", []))
+                        for i, n in enumerate(runs)},
+         k1_launches_rank0=k1_launches, k2_launches_rank0=k2_launches,
+         k2_shapes=k2["shapes"], k2_launches_checked=k2["launches"],
+         k2_s32_max_abs_err=k2["s32_max_abs_err"], k1_band_shapes=len(k1_shapes),
+         peak_mem_gib={"one_process": mem_one.get("peak_mem_gib"),
+                       "ranks_1x2": [r[-1].get("peak_mem_gib") for r in two]},
+         mem_size=mem_size, card=smi)
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2": k2,
+            "k1_shapes": k1_shapes}
 
 
 def classifier_lockstep(mesh, images: np.ndarray, labels: np.ndarray, batch: int,
@@ -4036,7 +4195,8 @@ def main(argv=None) -> int:
           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
                     "cudnn_bf16_ms", "library_ms", "library_k2_ms", "library_k2_device_ms",
                     "library_launches", "library_failed_launches")}
-    paths = {**int8["shapes"], **int8_train["shapes"], "stylize_spatial_int8_band": par["band"]}
+    paths = {**int8["shapes"], **int8_train["shapes"], "stylize_spatial_int8_band": par["band"],
+             "train_space_band": space["k2"]}
     k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
     # K2's data gradients: the sums over one step's dgrad launches of each int8 training net.
@@ -4075,6 +4235,12 @@ def main(argv=None) -> int:
                         "4 a step on the rank's band of each tap), train_space_2x2 rank 0 "
                         "of 4 ranks with mesh (2, 2) (the same counts), train_space_bf16 "
                         "two bf16 epochs over (1, 2) (4 + 4 a step); "
+                        "train_space_<run> rank 0 of the (1, 2) runs of 'classifier' mode "
+                        "and the int8 options (one f32 epoch each at 224x224, global B=4): "
+                        "clf, clf_bf16 and qclf compute no Gram (0), qloss and qat_qgram 2 a "
+                        "step on the band of relu1_2 and relu2_2 + 4 for the targets, qat_all "
+                        "4 + 4 a step; the _2x2 ones rank 0 of 4 with mesh (2, 2), the same "
+                        "counts; "
                         "the diffusion_* paths (guided DDIM, training, the samplers, the CLI, "
                         "the CFID curve's training and sampling) compute no Gram: 0",
         "times_are": f"sum over the 4 VGG taps of one Gatys step ({GATYS_SIZE}x{GATYS_SIZE}, "
@@ -4101,7 +4267,8 @@ def main(argv=None) -> int:
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
         "launches_by_path": {**int8["launches"], **int8_train["launches"],
-                             **serve["launches"], **par["k2_launches"], **diff["k2_launches"]},
+                             **serve["launches"], **par["k2_launches"], **space["k2_launches"],
+                             **diff["k2_launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
@@ -4131,8 +4298,13 @@ def main(argv=None) -> int:
                         "one 1024x1024 B=4 eval batch's 2 images (68); train_dp_int8 rank 0 "
                         "of DP 'cycle' training at 224x224, global B=4, one epoch, with "
                         "quantize_loss and QAT trunk (4 steps x 38 + 6, the single "
-                        "process's count); the diffusion_* paths run the f32 ResNet-50 and "
-                        "no int8 conv: 0",
+                        "process's count); train_space_<run> rank 0 of 2 ranks on one card "
+                        "over gloo training over a ('data', 'space') mesh (1, 2), one f32 "
+                        "epoch of 4 steps at 224x224, global B=4, each conv forward and dgrad "
+                        "on the rank's band: qloss 4 x 12 + 6 (the targets), qat_qgram 4 x "
+                        "26, qat_all 4 x 32, qclf 4 x 104, clf and clf_bf16 0; the _2x2 ones "
+                        "rank 0 of 4 with mesh (2, 2), the same counts; "
+                        "the diffusion_* paths run the f32 ResNet-50 and no int8 conv: 0",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
                      "transpose conv's sub-pixel classes and split-K's final sum and epilogue "
@@ -4146,7 +4318,9 @@ def main(argv=None) -> int:
                      "paths holds each path's sums (train_*: one step of the int8 training "
                      "nets, forward and dgrad launches apart; stylize_spatial_int8_band both "
                      "ranks' launches at the row-band shapes of a 512x512 image over 2 "
-                     "ranks), dgrad the sums over the train_*_dgrad paths, kernel_rows the sums "
+                     "ranks; train_space_band every rank's launches of phase space_train's "
+                     "int8 runs over (1, 2) and (2, 2), forward and dgrad, at their band "
+                     "shapes, warm events only), dgrad the sums over the train_*_dgrad paths, kernel_rows the sums "
                      "of phase kernel_rows' paths (warm events only), and each qconv line "
                      "its shape's plan",
         "paths": paths,

@@ -521,10 +521,6 @@ REFUSED = [
     (dict(quantize_loss="all", fold_batch="vgg"), NotImplementedError, "use quantize_loss='deep'"),
     (dict(quantize_loss=2, fold_batch=True), NotImplementedError, "use quantize_loss='deep'"),
     (dict(mesh=space_mesh()), ValueError, "needs 2 ranks"),
-    (dict(mesh=space_mesh(), quantize_loss=True), NotImplementedError, "item 12c"),
-    (dict(mesh=space_mesh(), qat=True), NotImplementedError, "item 12c"),
-    (dict(mesh=space_mesh(), quantize_gram=True), NotImplementedError, "item 12c"),
-    (dict(mesh=space_mesh(), fold_batch="vgg"), NotImplementedError, "item 12c"),
     (dict(qat="half"), ValueError, "qat must be"),
     (dict(quantize_gram="on"), ValueError, "quantize_gram must be"),
 ]

@@ -44,7 +44,6 @@ from artist_style_transfer_tpu_torch.utils.jax_params import (
 from tests.test_torch_classifier import numpy_params
 from tests.test_torch_train_loop import zero_grad_leaf
 from tests.test_torch_data import one_torch_thread  # noqa: F401
-from tests.test_torch_distributed import space_mesh
 
 SIZE, B, N = 32, 2, 5
 LR, WD, CW, SW = 0.01, 1e-4, 17.0, 25.0
@@ -300,7 +299,6 @@ def test_train_classifier_hook_forms_agree(hooks, tmp_path):
 REFUSED = [
     (dict(qat=True, fold_batch=True), NotImplementedError, "batch->H folded"),
     (dict(quantize_loss="all", fold_batch=True), NotImplementedError, "quantize_loss='deep'"),
-    (dict(mesh=space_mesh()), NotImplementedError, "item 12c"),
     (dict(artist="Albrecht_Dürer"), ValueError, "not in tuple"),
 ]
 
