@@ -11,7 +11,13 @@ tests feed JAX's through them).
 
 ``mesh`` trains data-parallel on the port's DP pattern: every rank gathers and draws
 the same global batch and runs its slice; one all-reduce a step averages the gradients
-and the loss, so every rank holds the same model.
+and the loss, so every rank holds the same model. A ('data', 'space') mesh (JAX's
+``P("data", "space")``) also spreads each image's rows over the 'space' ranks: each rank
+takes its rows of its slice's images and of their noise, runs the UNet on them
+(``DiffModel.forward_rows``), and the loss is the whole slice's MSE, the bands' sums
+of squares summed over the 'space' line; each rank's gradient is the part from its
+rows, which the sync sums over every rank and divides by the number of data slices.
+The ranks must divide the images' height.
 """
 
 from __future__ import annotations
@@ -29,7 +35,13 @@ from artist_style_transfer_tpu_torch.diffusion.unet import (
     init_diff_model,
 )
 from artist_style_transfer_tpu_torch.parallel.distributed import make_global
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
+from artist_style_transfer_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_mesh,
+    shard_batch,
+    spatial_size,
+)
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, row_sum
 from artist_style_transfer_tpu_torch.train.loop import epoch_permutation, sync_gradients
 from artist_style_transfer_tpu_torch.utils.device import resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
@@ -46,13 +58,22 @@ def diffusion_step(
     ema: DiffModel | None = None,
     ema_decay: float | None = None,
     mesh: Mesh | None = None,
+    bands: RowBands | None = None,
 ) -> torch.Tensor:
     """One Adam step on the eps MSE of the batch ``x0`` ([-1, 1] NHWC) with classes ``y``
     at timesteps ``t`` with ``noise``; then ``ema = ema * d + params * (1 - d)``. Under
     ``mesh`` the arguments are this rank's slice and the gradients and loss are averaged
-    over the ranks. Returns the (mean) loss, a 0-d tensor on the device."""
+    over the ranks; with ``bands`` (over the mesh's 'space' line) ``x0`` and ``noise``
+    are this rank's band of the slice's rows, and the loss the slice's whole MSE.
+    Returns the (mean) loss, a 0-d tensor on the device."""
     x_t = diffusion.q_sample(x0, t, noise)
-    loss = (diff_model_apply(model, x_t, t, y) - noise).square().mean()
+    if bands is None:
+        loss = (diff_model_apply(model, x_t, t, y) - noise).square().mean()
+    else:
+        xc = x_t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        eps, _ = model.forward_rows(xc, t, y, bands)
+        count = x0.shape[0] * bands.height * x0.shape[2] * x0.shape[3]
+        loss = row_sum((eps.permute(0, 2, 3, 1) - noise).square(), bands) / count
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     loss = loss.detach()
@@ -102,10 +123,10 @@ def train_diffusion(
     epoch is ``N // batch_size`` steps (the last partial batch dropped) over
     :func:`train.loop.epoch_permutation`, or over ``perms[epoch]`` where given;
     ``draws[epoch][step]`` is the step's ``(t, noise)`` for the global batch where
-    given. ``mesh``: data-parallel over its ranks (the module docstring); its size must
-    divide ``batch_size``, and only rank 0 logs.
+    given. ``mesh``: data-parallel over its ranks, and with a 'space' axis on row bands
+    (the module docstring); its size must divide ``batch_size``, and only rank 0 logs.
     """
-    data_parallel(mesh)
+    check_mesh(mesh)
     dev = resolve_device(device)
     if mesh is not None:
         if batch_size % mesh.size:
@@ -127,6 +148,11 @@ def train_diffusion(
     y_all = torch.as_tensor(np.asarray(labels), dtype=torch.int64).to(dev)
     n = data.shape[0]
     steps_per_epoch = n // batch_size
+    bands = None
+    if spatial_size(mesh) > 1:
+        if data.shape[1] % 4 or data.shape[2] % 4:
+            raise ValueError(f"the UNet needs H, W divisible by 4, got {tuple(data.shape[1:3])}")
+        bands = RowBands.even(mesh.axis_mesh("space"), data.shape[1])
     if steps_per_epoch == 0:
         raise ValueError("fewer images than batch_size")
 
@@ -148,9 +174,13 @@ def train_diffusion(
             else:
                 t, noise = (torch.from_numpy(np.array(a)).to(dev) for a in draws[epoch][i])
                 t, noise = t.to(torch.int64), noise.to(torch.float32)
-            step_losses.append(diffusion_step(
-                model, optimizer, diffusion, *(shard_batch(a, mesh) for a in (x0, y, t, noise)),
-                ema=ema, ema_decay=ema_decay, mesh=mesh))
+            x0, y, t, noise = (shard_batch(a, mesh) for a in (x0, y, t, noise))
+            if bands is not None:
+                a, b = bands.bounds()
+                x0, noise = x0[:, a:b], noise[:, a:b]
+            step_losses.append(diffusion_step(model, optimizer, diffusion, x0, y, t, noise,
+                                              ema=ema, ema_decay=ema_decay, mesh=mesh,
+                                              bands=bands))
         losses[epoch] = float(torch.stack(step_losses).mean())
         log.log("diffusion_epoch", epoch=epoch + 1, loss=losses[epoch],
                 secs=round(time.time() - t0, 2))

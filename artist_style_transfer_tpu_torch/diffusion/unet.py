@@ -9,6 +9,17 @@ JAX parameter tree's structure and names (``down[i].blocks[j].conv1``, ``mid1``,
 ``.`` for ``/`` and ``weight``/``bias`` for ``w``/``b``
 (:func:`utils.jax_params.diff_model_state_dict_from_jax`). Weights are torch-native
 (OIHW convs, (O, I) dense layers); inside, tensors are NCHW in ``channels_last``.
+
+``DiffModel.forward_rows`` runs the net on one band of each image's rows while the
+other ranks of a 'space' line run the others (:mod:`parallel.spatial`), for training
+over a ('data', 'space') mesh: every 3x3 conv (stride 1 or the stride-2 downsample) on
+its gathered rows, zero-padded at the image's top and bottom; the 1x1 convs, FiLM (the
+embedding is the same on every rank) and the nearest 2x upsampling on the band;
+GroupNorm with the whole image's statistics; the bottleneck attention with this rank's
+queries against every rank's keys and values. A conv gathers its rows from any split
+and writes the even one, so the upsample conv re-bands the upsampled rows: at H = 24
+over 4 ranks the bottleneck's bands of 2, 2, 1, 1 rows upsample to 4, 4, 2, 2, and the
+conv's output, 3 each, is the split of the skip it meets.
 """
 
 from __future__ import annotations
@@ -20,6 +31,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from artist_style_transfer_tpu_torch.ops.conv import conv2d, linear
+from artist_style_transfer_tpu_torch.parallel.spatial import (
+    RowBands,
+    all_rows_grad,
+    conv_rows,
+    group_norm_rows,
+    on_band,
+)
 
 # channel multiplier per resolution; base width and blocks fixed for compactness
 CHANNEL_MULTS = (1, 2, 4)
@@ -53,9 +71,24 @@ class _GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.gamma, self.beta)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowBands) -> torch.Tensor:
+        return group_norm_rows(x, rows, self.gamma, self.beta, GROUPS, GROUP_NORM_EPS)
+
 
 def _conv(x: torch.Tensor, m: nn.Conv2d, stride: int = 1) -> torch.Tensor:
     return conv2d(x, m.weight, m.bias, stride, m.kernel_size[0] // 2)
+
+
+def _conv_rows(x: torch.Tensor, rows: RowBands, m: nn.Conv2d,
+               stride: int = 1) -> tuple[torch.Tensor, RowBands]:
+    """:func:`_conv` on this rank's band: a 1x1 conv on the band, a 3x3 one on its
+    gathered rows, zero-padded (every conv of the UNet pads with zeros)."""
+    k = m.kernel_size[0]
+    if k == 1:
+        return on_band(x, lambda t: _conv(t, m), m.out_channels), rows
+    return conv_rows(x, rows, k, stride, k // 2,
+                     lambda t: F.conv2d(t, m.weight, m.bias, stride=stride, padding=(0, k // 2)),
+                     m.out_channels, pad_mode="zeros")
 
 
 class ResBlock(nn.Module):
@@ -80,6 +113,17 @@ class ResBlock(nn.Module):
             x = _conv(x, self.skip)
         return x + h
 
+    def forward_rows(self, x: torch.Tensor, emb: torch.Tensor,
+                     rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        h, out = _conv_rows(F.silu(self.norm1.forward_rows(x, rows)), rows, self.conv1)
+        scale, shift = linear(F.silu(emb), self.emb.weight, self.emb.bias).chunk(2, dim=-1)
+        h = self.norm2.forward_rows(h, out) * (1.0 + scale[:, :, None, None]) \
+            + shift[:, :, None, None]
+        h, out = _conv_rows(F.silu(h), out, self.conv2)
+        if self.skip is not None:
+            x, _ = _conv_rows(x, rows, self.skip)
+        return x + h, out
+
 
 class Attention(nn.Module):
     """Single-head self-attention over the H*W positions, as JAX's two einsums."""
@@ -97,6 +141,20 @@ class Attention(nn.Module):
         attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(c), dim=-1)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(n, c, h, w)
         return x + _conv(out.contiguous(memory_format=torch.channels_last), self.proj)
+
+    def forward_rows(self, x: torch.Tensor, rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        """This rank's queries (its band's positions) against every position's key and
+        value, gathered from every rank; each key's and value's cotangent returns to
+        its owner (:func:`parallel.spatial.all_rows_grad`)."""
+        n, c, h, w = x.shape
+        qkv, _ = _conv_rows(self.norm.forward_rows(x, rows), rows, self.qkv)
+        q = qkv[:, :c].flatten(2).transpose(1, 2)  # (n, h_band * w, c)
+        kv = all_rows_grad(qkv[:, c:], rows, dim=2).flatten(2).transpose(1, 2)  # (n, hw, 2c)
+        k, v = kv.split(c, dim=-1)
+        attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(c), dim=-1)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(n, c, h, w)
+        proj, _ = _conv_rows(out.contiguous(memory_format=torch.channels_last), rows, self.proj)
+        return x + proj, rows
 
 
 class DiffModel(nn.Module):
@@ -167,6 +225,39 @@ class DiffModel(nn.Module):
             if hasattr(up, "upsample"):
                 h = _conv(F.interpolate(h, scale_factor=2, mode="nearest"), up.upsample)
         return _conv(F.silu(self.norm_out(h)), self.conv_out)
+
+    def forward_rows(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
+                     rows: RowBands) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows (``rows`` says whose band is which;
+        the module docstring): this rank's band of epsilon, and its bands. Every rank of
+        ``rows.mesh`` runs it at once, with the same ``t`` and ``y``."""
+        emb = timestep_embedding(t, self.base_channels)
+        emb = linear(F.silu(linear(emb, self.time_mlp1.weight, self.time_mlp1.bias)),
+                     self.time_mlp2.weight, self.time_mlp2.bias)
+        emb = emb + self.class_emb[y]
+        h, rows = _conv_rows(x, rows, self.conv_in)
+        skips = [(h, rows)]
+        for down in self.down:
+            for block in down.blocks:
+                h, rows = block.forward_rows(h, emb, rows)
+                skips.append((h, rows))
+            if hasattr(down, "downsample"):
+                h, rows = _conv_rows(h, rows, down.downsample, stride=2)
+                skips.append((h, rows))
+        h, rows = self.mid1.forward_rows(h, emb, rows)
+        h, rows = self.attn.forward_rows(h, rows)
+        h, rows = self.mid2.forward_rows(h, emb, rows)
+        for up in self.up:
+            for block in up.blocks:
+                skip, _ = skips.pop()
+                h, rows = block.forward_rows(torch.cat([h, skip], dim=1), emb, rows)
+            if hasattr(up, "upsample"):
+                # nearest 2x on the band: its rows double, and so do the bands' bounds
+                h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+                rows = RowBands(rows.mesh, 2 * rows.height, tuple(2 * a for a in rows.starts))
+                h, rows = _conv_rows(h.contiguous(memory_format=torch.channels_last), rows,
+                                     up.upsample)
+        return _conv_rows(F.silu(self.norm_out.forward_rows(h, rows)), rows, self.conv_out)
 
 
 # Layers JAX initializes at scale 1e-4 (near zero): every residual branch's last conv,

@@ -11,12 +11,17 @@ accumulators and the quantized frozen classifier, every interior conv on
 kernel K2.
 
 With ``mesh`` (a :class:`parallel.mesh.Mesh`, one process a rank, each calling
-with the same arguments) every batch the ranks divide is split over them, as
+with the same arguments) every batch the data slices divide is split over them, as
 JAX shards it over its 'data' axis: each rank stylizes and classifies its slice,
 the int8 classifier's dynamic scales are the whole batch's (the mesh goes to
-:func:`eval_logits`), and the predictions are all-gathered, so
+:func:`eval_logits`), and the predictions are all-gathered over the 'data' line, so
 every rank returns the same accuracy and rank 0 alone prints. A batch they do not
-divide runs whole on every rank (JAX ``evaluate.py:193``).
+divide runs whole on every data slice (JAX ``evaluate.py:193``). A ('data', 'space')
+mesh (JAX's ``P("data", "space")``) also spreads each image's rows over the 'space'
+ranks: the stylizer and the classifier run on bands (``forward_rows``), the crop keeps
+each band's share of the crop's rows (:func:`parallel.spatial.center_crop_rows`), and
+the logits come out the same on every rank of a 'space' line; the ranks must divide
+the height.
 """
 
 from __future__ import annotations
@@ -33,7 +38,14 @@ from artist_style_transfer_tpu_torch.models.transformer_q import (
 )
 from artist_style_transfer_tpu_torch.ops.image import bgr_to_rgb, center_crop, torchvision_normalize
 from artist_style_transfer_tpu_torch.parallel.distributed import make_global
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
+from artist_style_transfer_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_mesh,
+    data_size,
+    shard_batch,
+    spatial_size,
+)
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, center_crop_rows
 from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 
 
@@ -43,26 +55,36 @@ def eval_logits(
     images_bgr_255: torch.Tensor,
     crop_size: int = 256,
     mesh: Mesh | None = None,
+    bands: RowBands | None = None,
 ) -> torch.Tensor:
     """Stylize -> uint8 clip -> crop -> classify, for one NHWC batch on the models' device
     (JAX ``_eval_core``, or ``_eval_core_int8`` for the quantized pair). ``mesh``: the
     ranks that hold this batch between them, whose max is each int8 classifier scale.
+    ``bands``: ``images_bgr_255`` is this rank's band of the rows that ``bands`` spreads,
+    and every rank of ``bands.mesh`` runs the call at once; the logits are the same on
+    each of them.
 
     The reference saves to uint8 before its classifier transform
     (inference.py:116 -> :154), so the output is clipped and floored first. A
     quantized stylizer runs with bf16 accumulators, as JAX's int8 eval does.
     """
+    kw = {"accum": torch.bfloat16} if isinstance(model, QuantizedTransformerNet) else {}
+    int8_kw = {"mesh": mesh} if isinstance(classifier, QuantizedClassifier) else {}
     with torch.inference_mode():
-        if isinstance(model, QuantizedTransformerNet):
-            out = model(images_bgr_255.float(), accum=torch.bfloat16).float()
+        x = images_bgr_255.float()
+        if bands is None:
+            out = model(x, **kw)
         else:
-            out = model(images_bgr_255.float())
-        out = torch.floor(out.clamp(0.0, 255.0))
-        rgb01 = bgr_to_rgb(center_crop(out, crop_size)) / 255.0
-        x = torchvision_normalize(rgb01)
-        if isinstance(classifier, QuantizedClassifier):
-            return classifier(x, mesh=mesh)
-        return classifier(x)
+            out, bands = model.forward_rows(x, bands, **kw)
+        out = torch.floor(out.float().clamp(0.0, 255.0))
+        if bands is None:
+            out = center_crop(out, crop_size)
+        else:
+            out, bands = center_crop_rows(out, bands, crop_size)
+        x = torchvision_normalize(bgr_to_rgb(out) / 255.0)
+        if bands is None:
+            return classifier(x, **int8_kw)
+        return classifier.forward_rows(x, bands, **int8_kw)
 
 
 def quantize_eval_pipeline(
@@ -110,10 +132,11 @@ def evaluate_with_classifier(
     fold is a TPU layout rewrite of the same math (under a mesh each rank's slice
     runs the direct path, as JAX folds each device's shard). ``crop_size`` is 256 in
     the reference; smaller values serve tests at small shapes. ``mesh``: the module
-    docstring; only rank 0 prints.
+    docstring; only rank 0 prints. A height that a 'space' line does not divide
+    raises ``ValueError``, as JAX's ``device_put`` of the sharded batch does.
     """
     del fold_batch
-    data_parallel(mesh)
+    check_mesh(mesh)
     dev = resolve_device(device)
     for name, net in (("model", model), ("classifier", classifier)):
         net_dev = module_device(net)
@@ -128,7 +151,10 @@ def evaluate_with_classifier(
         calib = [c for c in calib if c.shape == calib[0].shape]
         model, classifier = quantize_eval_pipeline(model, classifier, np.stack(calib))
         make_global(mesh, (model, classifier))  # one set of int8 scales on every rank
-    sharded = mesh is not None and batch_size % mesh.size == 0
+    sharded = mesh is not None and batch_size % data_size(mesh) == 0
+    space = mesh.axis_mesh("space") if spatial_size(mesh) > 1 else None
+    # the ranks that hold one batch between them, for the int8 classifier's scales
+    scales_mesh = mesh if sharded else space
 
     n = len(content_images)
     preds = np.zeros((n,), np.int64)
@@ -142,12 +168,17 @@ def evaluate_with_classifier(
             pad = batch_size - len(take)
             if pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
-            x = torch.as_tensor(chunk).to(dev)
+            x = torch.as_tensor(chunk)
             if sharded:
-                local = eval_logits(model, classifier, shard_batch(x, mesh), crop_size, mesh)
-                p = torch.cat(mesh.all_gather(local.argmax(-1)))
-            else:
-                p = eval_logits(model, classifier, x, crop_size).argmax(-1)
+                x = shard_batch(x, mesh)
+            bands = None
+            if space is not None:
+                bands = RowBands.even(space, x.shape[1])
+                x = x[:, slice(*bands.bounds())]
+            p = eval_logits(model, classifier, x.to(dev), crop_size, scales_mesh,
+                            bands).argmax(-1)
+            if sharded:
+                p = torch.cat(mesh.axis_mesh("data").all_gather(p))
             preds[take] = p.cpu().numpy()[: len(take)]
     correct = int((preds == artist_index).sum())
     if wordy and artists is not None:

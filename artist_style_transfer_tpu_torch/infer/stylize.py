@@ -18,7 +18,7 @@ import torch
 
 from artist_style_transfer_tpu_torch.models.transformer import TransformerNet
 from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, check_mesh
 from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, all_rows
 from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 
@@ -76,8 +76,11 @@ def stylize_int8(
 def _spatial(net, image_bgr_255, mesh: Mesh, device, run) -> torch.Tensor:
     """The shared body of the two row-sharded entry points: this rank's band of the
     input rows through ``run(x_band, bands) -> (y_band, out_bands)``, then the whole
-    output gathered on every rank."""
-    data_parallel(mesh)
+    output gathered on every rank. The rows spread over the 'data' line (JAX's
+    ``P(None, "data")``) and repeat over 'space': each rank of a 'space' line computes
+    the same band."""
+    check_mesh(mesh)
+    line = mesh.axis_mesh("data")
     dev = resolve_device(device)
     for name, where in (("model", module_device(net)), ("mesh", mesh.device)):
         if not same_device(where, dev):
@@ -85,10 +88,7 @@ def _spatial(net, image_bgr_255, mesh: Mesh, device, run) -> torch.Tensor:
     x = torch.as_tensor(image_bgr_255)
     squeeze = x.dim() == 3
     x = x[None] if squeeze else x
-    if x.shape[1] % mesh.size:
-        raise ValueError(f"image height {x.shape[1]} does not divide over the {mesh.size}-rank "
-                         "mesh")
-    bands = RowBands.split(mesh, x.shape[1])
+    bands = RowBands.even(line, x.shape[1])
     a, b = bands.bounds()
     with torch.inference_mode():
         y, out_bands = run(x[:, a:b].to(dev), bands)
@@ -107,11 +107,13 @@ def stylize_spatial(
     ``stylize_spatial``, which shards H over the 'data' axis).
 
     Every rank calls it with the same image (HWC or NHWC BGR [0,255]) and computes
-    its band of rows: before each conv it fetches the halo rows the conv reads from
+    its band of rows (on a ('data', 'space') mesh, the band of its 'data' line; the
+    ranks of a 'space' line compute the same one, and with one data slice the whole
+    image): before each conv it fetches the halo rows the conv reads from
     its neighbours, and each instance norm takes the whole image's statistics
     (:mod:`parallel.spatial`), so the activations a rank holds are about 1/n of the
     image's plus halos. Returns the whole output on every rank, the input's rank,
-    uint8 if ``clip``. The mesh's size must divide H, as JAX's sharding needs; the
+    uint8 if ``clip``. The 'data' line's size must divide H, as JAX's sharding needs; the
     bands at half and quarter resolution may be uneven. Equal to :func:`stylize` up
     to the order of the sums.
     """

@@ -29,7 +29,9 @@ stride-2 downsample on their gathered, zero-padded rows, the 1x1 convs and the
 inference BN (a per-channel affine, no statistic) on the band, the 3x3/2 pool on its
 gathered rows; the head's max and mean pools over every rank's rows, their result
 and the head's logits the same on every rank, the pools' cotangents passed through
-(every rank's loss holds the whole logits).
+(every rank's loss holds the whole logits). :func:`classifier_apply_train_rows` runs
+the same banded trunk in train mode, for training the classifier itself over a 'space'
+axis: the body's BNs on every rank's rows, the head's on the 'data' line.
 """
 
 from __future__ import annotations
@@ -105,19 +107,20 @@ class Bottleneck(nn.Module):
             identity = bn(conv2d(x, conv.weight, stride=self.stride), down_bn)
         return torch.relu(h + identity)
 
-    def forward_rows(self, x: torch.Tensor, rows: RowBands) -> tuple[torch.Tensor, RowBands]:
-        """:meth:`forward` (frozen BN) on this rank's band of rows: the 1x1 convs on the
-        band, the 3x3 conv and a stride-2 downsample (whose output rows read input rows
-        2q, which may sit on another rank) on their gathered rows."""
+    def forward_rows(self, x: torch.Tensor, rows: RowBands,
+                     bn=_bn) -> tuple[torch.Tensor, RowBands]:
+        """:meth:`forward` on this rank's band of rows: the 1x1 convs on the band, the 3x3
+        conv and a stride-2 downsample (whose output rows read input rows 2q, which may
+        sit on another rank) on their gathered rows; ``bn`` as for :meth:`forward`."""
         def conv1x1(t, w):
             return on_band(t, lambda u: conv2d(u, w), w.shape[0])
 
-        h = torch.relu(_bn(conv1x1(x, self.conv1.weight), self.bn1))
+        h = torch.relu(bn(conv1x1(x, self.conv1.weight), self.bn1))
         w2 = self.conv2.weight
         h, out = conv_rows(h, rows, 3, self.stride, 1,
                            lambda t: F.conv2d(t, w2, stride=self.stride, padding=(0, 1)),
                            w2.shape[0], pad_mode="zeros")
-        h = _bn(conv1x1(torch.relu(_bn(h, self.bn2)), self.conv3.weight), self.bn3)
+        h = bn(conv1x1(torch.relu(bn(h, self.bn2)), self.conv3.weight), self.bn3)
         identity = x
         if self.downsample is not None:
             conv, down_bn = self.downsample
@@ -127,7 +130,7 @@ class Bottleneck(nn.Module):
                 identity, _ = conv_rows(x, rows, 1, self.stride, 0,
                                         lambda t: conv2d(t, conv.weight, stride=self.stride),
                                         conv.weight.shape[0], pad_mode="zeros")
-            identity = _bn(identity, down_bn)
+            identity = bn(identity, down_bn)
         return torch.relu(h + identity), out
 
 
@@ -167,19 +170,26 @@ class ResNet50Classifier(nn.Module):
         """:meth:`forward`'s logits from this rank's band of rows (``rows`` says whose
         band is which) of NHWC images: the same (N, num_classes) on every rank of
         ``rows.mesh``, which all run it at once."""
-        body, head = self.get_submodule("0"), self.get_submodule("1")
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        w = body.get_submodule("0").weight
-        x, rows = conv_rows(x, rows, 7, 2, 3, lambda t: F.conv2d(t, w, stride=2, padding=(0, 3)),
-                            w.shape[0], pad_mode="zeros")
-        x = torch.relu(_bn(x, body.get_submodule("1")))
-        x, rows = max_pool_rows(x, rows)
-        for i in range(len(RESNET50_STAGES)):
-            for block in body.get_submodule(str(4 + i)):
-                x, rows = block.forward_rows(x, rows)
-        feats = torch.cat([row_max(x, rows), row_mean(x, rows, replicated=True)[:, :, 0, 0]],
-                          dim=1)
-        return _head(head, feats, _bn, False)
+        return _forward_rows(self, x_nhwc, rows, _bn, _bn)
+
+
+def _forward_rows(model: ResNet50Classifier, x_nhwc: torch.Tensor, rows: RowBands, bn,
+                  head_bn) -> torch.Tensor:
+    """The shared banded trunk: ``bn(h, module)`` the body's BN behaviour, ``head_bn`` the
+    head's, whose input is the same on every rank of ``rows.mesh``."""
+    body, head = model.get_submodule("0"), model.get_submodule("1")
+    x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    w = body.get_submodule("0").weight
+    x, rows = conv_rows(x, rows, 7, 2, 3, lambda t: F.conv2d(t, w, stride=2, padding=(0, 3)),
+                        w.shape[0], pad_mode="zeros")
+    x = torch.relu(bn(x, body.get_submodule("1")))
+    x, rows = max_pool_rows(x, rows)
+    for i in range(len(RESNET50_STAGES)):
+        for block in body.get_submodule(str(4 + i)):
+            x, rows = block.forward_rows(x, rows, bn)
+    feats = torch.cat([row_max(x, rows), row_mean(x, rows, replicated=True)[:, :, 0, 0]],
+                      dim=1)
+    return _head(head, feats, head_bn, False)
 
 
 def _forward(model: ResNet50Classifier, x_nhwc: torch.Tensor, bn, return_features: bool):
@@ -229,6 +239,34 @@ def classifier_apply_train(
         return y
 
     return _forward(model, x_nhwc, bn, return_features), stats
+
+
+def classifier_apply_train_rows(
+    model: ResNet50Classifier, x_nhwc: torch.Tensor, rows: RowBands, mesh,
+) -> tuple[torch.Tensor, dict[str, tuple[torch.Tensor, torch.Tensor]]]:
+    """:func:`classifier_apply_train` on this rank's band of rows (``rows`` over the
+    'space' line of ``mesh``, the ('data', 'space') mesh whose ranks hold the batch
+    between them): ``(logits, bn_stats)``, both the same on every rank of a 'space' line.
+
+    The body's BNs take the statistics of every rank's rows (``mesh``). The head's BN1ds
+    run on the pooled features, which every rank of a 'space' line holds whole, so
+    their statistics reduce over the 'data' line alone: over the whole mesh each
+    feature would count once a 'space' rank. For the same reason the head's parameters
+    get their whole gradient on each 'space' rank, where the body's get the part from
+    the rank's rows (the trainer syncs the two apart)."""
+    names = {m: n for n, m in model.named_modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)}
+    stats: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def bn_over(over):
+        def bn(h: torch.Tensor, m: nn.Module) -> torch.Tensor:
+            y, mean, var = batch_norm_train(h, m.weight, m.bias, m.eps, mesh=over)
+            stats[names[m]] = (mean, var)
+            return y
+        return bn
+
+    logits = _forward_rows(model, x_nhwc, rows, bn_over(mesh), bn_over(mesh.axis_mesh("data")))
+    return logits, stats
 
 
 def update_running_stats(model: ResNet50Classifier, bn_stats: dict, momentum: float = 0.1) -> None:

@@ -25,8 +25,10 @@ slice (:func:`shard_batch`), and replicated state is the same tensor on every ra
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -34,6 +36,21 @@ import torch.distributed as dist
 from artist_style_transfer_tpu_torch.utils.device import resolve_device
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+# Host seconds this process has spent in its meshes' collectives, a tracing counter that
+# ``parallel.workers`` reads around a run: over gloo the whole collective, over NCCL its
+# enqueue. Two clock reads a collective.
+COLLECTIVE_SECONDS = 0.0
+
+
+@contextlib.contextmanager
+def _collective():
+    global COLLECTIVE_SECONDS
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        COLLECTIVE_SECONDS += time.perf_counter() - t0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -78,7 +95,8 @@ class Mesh:
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or max, ``op="max"``) ``t`` over the ranks, in place; returns ``t``."""
         if self.group is not None:
-            dist.all_reduce(t, op=_OPS[op], group=self.group)
+            with _collective():
+                dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
@@ -86,13 +104,15 @@ class Mesh:
         if self.group is None:
             return [t]
         out = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(out, t.contiguous(), group=self.group)
+        with _collective():
+            dist.all_gather(out, t.contiguous(), group=self.group)
         return out
 
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank, in place; returns ``t``."""
         if self.group is not None:
-            dist.broadcast(t, src=dist.get_global_rank(self.group, 0), group=self.group)
+            with _collective():
+                dist.broadcast(t, src=dist.get_global_rank(self.group, 0), group=self.group)
         return t
 
     def broadcast_object(self, obj):
@@ -206,8 +226,7 @@ def shard_batch(x, mesh: Mesh | None):
     divide the batch."""
     if mesh is None:
         return x
-    s = spatial_size(mesh)
-    n = mesh.size // s
+    n = data_size(mesh)
     if x.shape[0] % n:
         raise ValueError(f"batch of {x.shape[0]} does not divide over the {n}-rank mesh")
     b = x.shape[0] // n
@@ -218,27 +237,19 @@ def shard_batch(x, mesh: Mesh | None):
     return x[i * b : (i + 1) * b]
 
 
-def train_mesh(mesh: Mesh | None) -> Mesh | None:
-    """``mesh`` for the style-transfer trainer, which shards batches over 'data' and
+def check_mesh(mesh: Mesh | None) -> Mesh | None:
+    """``mesh`` for any entry point of the port, which shards batches over 'data' and
     image rows over 'space': a mesh with another axis larger than 1 raises
     ``NotImplementedError``, one whose shape exceeds its process group ``ValueError``."""
     if mesh is not None and any(s > 1 for a, s in zip(mesh.axis_names, mesh.shape)
                                 if a not in ("data", "space")):
         raise NotImplementedError(
-            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: the trainer "
-            "shards over 'data' and 'space' alone")
+            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: the port shards "
+            "over 'data' and 'space' alone")
     return require_ranks(mesh)
 
 
-def data_parallel(mesh: Mesh | None) -> Mesh | None:
-    """``mesh`` for a data-parallel path, which shards batches over every rank:
-    a mesh with an axis other than 'data' larger than 1 raises ``NotImplementedError``,
-    one whose shape exceeds its process group ``ValueError``."""
-    if mesh is not None and any(s > 1 for a, s in zip(mesh.axis_names, mesh.shape)
-                                if a != "data"):
-        raise NotImplementedError(
-            f"a mesh with axes {dict(zip(mesh.axis_names, mesh.shape))}: evaluation, "
-            "stylization, artist-classifier and diffusion training over an axis other "
-            "than 'data' (a 'space' axis of image rows) come with ROADMAP Queue 1 item "
-            "12d; use a 'data' mesh")
-    return require_ranks(mesh)
+def data_size(mesh: Mesh | None) -> int:
+    """The number of data slices: the mesh's ranks over its 'space' ranks (1 without a
+    mesh)."""
+    return 1 if mesh is None else mesh.size // spatial_size(mesh)

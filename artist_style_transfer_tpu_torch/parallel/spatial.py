@@ -1,9 +1,9 @@
 """One image's rows spread over a mesh's ranks: the halo exchanges and the statistics
 that ``stylize_spatial`` and ``stylize_spatial_int8`` need (the port of what GSPMD
 inserts for JAX's ``P(None, "data")`` sharding, ``infer/stylize.py:122-197``), and
-their backward, for training over a ('data', 'space') mesh (JAX's
+their backward, for training and evaluation over a ('data', 'space') mesh (JAX's
 ``P("data", "space")``, ``parallel/mesh.py:41-48``), where the mesh here is the
-'space' line of the training mesh.
+'space' line of that mesh.
 
 :class:`RowBands` says which rows of a tensor of global height ``height`` each
 rank holds: rank r holds rows ``[starts[r], starts[r+1])``, the rows split as
@@ -33,8 +33,13 @@ none), then runs the caller's conv on the gathered rows:
 :func:`row_mean` and :func:`instance_norm_rows` all-reduce per-image, per-channel
 sums over every rank's own rows (halo rows never count), and :func:`row_max` takes
 the per-image, per-channel max the same way; :func:`row_sum` sums a loss's terms over
-the bands, :func:`int_sum_over_ranks` an int32 partial product. Every collective is
-the mesh's; the same code runs over NCCL and gloo.
+the bands, :func:`int_sum_over_ranks` an int32 partial product;
+:func:`group_norm_rows` is the UNet's GroupNorm with the whole image's statistics.
+:func:`center_crop_rows` keeps each band's share of a crop's rows (its output bands
+need not be an even split: a conv reads its rows from any split and writes the even
+one); :func:`all_rows_grad` gives every rank the whole image (the UNet's attention
+reads every position). Every collective is the mesh's;
+the same code runs over NCCL and gloo.
 
 Each of them is differentiable, and the backward of a collective depends on who
 consumes its result: a fetched halo row's cotangent goes back to its owner (one
@@ -79,6 +84,16 @@ class RowBands:
         for r in range(n):
             starts.append(starts[-1] + base + (1 if r < extra else 0))
         return cls(mesh, height, tuple(starts))
+
+    @classmethod
+    def even(cls, line: Mesh, height: int) -> RowBands:
+        """:meth:`split` of a batch's rows over the one-axis mesh ``line``: a height the
+        line does not divide raises ``ValueError``, as JAX's ``device_put`` of a
+        row-sharded batch does."""
+        if height % line.size:
+            raise ValueError(f"image height {height} does not divide over the {line.size}-rank "
+                             f"'{line.axis_names[0]}' line")
+        return cls.split(line, height)
 
     def bounds(self, rank: int | None = None) -> tuple[int, int]:
         r = self.mesh.rank if rank is None else rank
@@ -466,3 +481,109 @@ def instance_norm_rows(x: torch.Tensor, bands: RowBands, scale: torch.Tensor,
     all-reduced over every rank's own rows, forward and backward
     (:class:`_InstanceNormRows`)."""
     return _InstanceNormRows.apply(x, bands, scale, bias, relu, eps)
+
+
+def center_crop_rows(x: torch.Tensor, bands: RowBands, size: int) -> tuple[torch.Tensor,
+                                                                           RowBands]:
+    """:func:`ops.image.center_crop` of the NHWC image whose rows (axis 1) ``bands``
+    spreads: each rank keeps the crop's rows that lie in its band, so the output's
+    :class:`RowBands` start where the crop cuts the input's bands, and a band wholly
+    outside the crop is empty. W is cropped on every band; the rows of zeros that pad
+    an image lower than ``size`` go to the first rank (above) and the last (below).
+    Returns this rank's output band and the output's bands. No exchange."""
+    h, n = bands.height, bands.mesh.size
+    pad_h = max(size - h, 0)
+    top = -(pad_h - pad_h // 2) if pad_h else (h - size) // 2
+    starts = [0] + [min(max(bands.starts[r] - top, 0), size) for r in range(1, n)] + [size]
+    out = RowBands(bands.mesh, size, tuple(starts))
+    a, b = bands.bounds()
+    oa, ob = out.bounds()
+    idx = [j - a if a <= j < b else x.shape[1] for j in range(oa + top, ob + top)]
+    rows = torch.cat([x, x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:]))], dim=1)
+    y = rows.index_select(1, torch.as_tensor(idx, dtype=torch.long, device=x.device))
+    w = y.shape[2]
+    pad_w = max(size - w, 0)
+    if pad_w:
+        y = F.pad(y, (0, 0, pad_w - pad_w // 2, pad_w // 2))
+    return y.narrow(2, (y.shape[2] - size) // 2, size), out
+
+
+class _AllRowsGrad(torch.autograd.Function):
+    """:func:`all_rows_grad`: the forward's :func:`all_rows`; the backward sums the
+    whole cotangent over the ranks (each rank's consumer read every row) and keeps this
+    rank's band of it, so each row's cotangent returns to its owner."""
+
+    @staticmethod
+    def forward(ctx, y, bands: RowBands, dim: int):
+        ctx.bands, ctx.dim, ctx.dtype = bands, dim, y.dtype
+        return all_rows(y, bands, dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        acc = torch.promote_types(g.dtype, torch.float32)
+        a, b = ctx.bands.bounds()
+        whole = ctx.bands.mesh.all_reduce_(g.to(acc, copy=True).contiguous())
+        return whole.narrow(ctx.dim, a, b - a).to(ctx.dtype), None, None
+
+
+def all_rows_grad(y: torch.Tensor, bands: RowBands, dim: int) -> torch.Tensor:
+    """:func:`all_rows`, differentiable: the whole image on every rank, for a consumer
+    on each rank that reads every row (the UNet's attention reads every position's key
+    and value), whose cotangents each row's owner sums (:class:`_AllRowsGrad`)."""
+    return _AllRowsGrad.apply(y, bands, dim)
+
+
+class _GroupNormRows(torch.autograd.Function):
+    """:func:`group_norm_rows`: the forward all-reduces each (image, group)'s sum over
+    every rank's own rows, then its centred squares (JAX's two-pass variance); the
+    backward the two group sums of its input gradient (of g and of g * x-hat), in one
+    call. gamma and beta get this rank's part of their gradient, which the trainer's
+    gradient sum completes."""
+
+    @staticmethod
+    def forward(ctx, x, bands: RowBands, gamma, beta, groups: int, eps: float):
+        from artist_style_transfer_tpu_torch.ops.norm import _stats_dtype
+
+        n, c, h, w = x.shape
+        g = min(groups, c)
+        count = float(c // g * bands.height * w)
+        xg = x.to(_stats_dtype(x)).reshape(n, g, c // g, h, w)
+        mesh = bands.mesh
+        mean = (mesh.all_reduce_(xg.sum(dim=(2, 3, 4))) / count)[:, :, None, None, None]
+        xc = xg - mean
+        var = mesh.all_reduce_(xc.square().sum(dim=(2, 3, 4))) / count
+        inv = torch.rsqrt(var + eps)[:, :, None, None, None]
+        xhat = (xc * inv).reshape(n, c, h, w)
+        y = (xhat * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)).to(x.dtype)
+        ctx.save_for_backward(xhat, inv, gamma)
+        ctx.bands, ctx.g, ctx.count, ctx.dtypes = bands, g, count, (x.dtype, gamma.dtype,
+                                                                    beta.dtype)
+        return y.contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xhat, inv, gamma = ctx.saved_tensors
+        x_dtype, g_dtype, b_dtype = ctx.dtypes
+        n, c, h, w = xhat.shape
+        g = ctx.g
+        dya = dy.to(xhat.dtype)
+        dgamma = (dya * xhat).sum(dim=(0, 2, 3)).to(g_dtype)
+        dbeta = dya.sum(dim=(0, 2, 3)).to(b_dtype)
+        gg = (dya * gamma.to(xhat.dtype).view(1, -1, 1, 1)).reshape(n, g, c // g, h, w)
+        xg = xhat.reshape(n, g, c // g, h, w)
+        sums = torch.cat([gg.sum(dim=(2, 3, 4)), (gg * xg).sum(dim=(2, 3, 4))], dim=1)
+        m = ctx.bands.mesh.all_reduce_(sums) / ctx.count
+        dx = inv * (gg - m[:, :g, None, None, None] - xg * m[:, g:, None, None, None])
+        return (dx.reshape(n, c, h, w).to(x_dtype).contiguous(memory_format=torch.channels_last),
+                None, dgamma, dbeta, None, None)
+
+
+def group_norm_rows(x: torch.Tensor, bands: RowBands, gamma: torch.Tensor,
+                    beta: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    """GroupNorm over ``min(groups, C)`` groups of consecutive channels of the NCHW image
+    whose rows ``bands`` spreads, with the whole image's statistics (f32, the two-pass
+    biased variance), each sum all-reduced over every rank's own rows, forward and
+    backward (:class:`_GroupNormRows`)."""
+    return _GroupNormRows.apply(x, bands, gamma, beta, groups, eps)

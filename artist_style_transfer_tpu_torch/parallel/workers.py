@@ -6,10 +6,10 @@ them by name; the port's multi-rank tests and ``chip_smoke.py`` launch them
 (:func:`run_jobs` runs several in one launch). Each takes the :class:`Mesh` that
 ``launch`` builds first; models cross as modules (pickled), images as numpy
 arrays. The functions that run an entry point also report its wall seconds
-(ending in a device sync) and the launches of the hand kernels K1 and K2 that
-their rank made (0 on the CPU); with ``profile=True``, from ``torch.profiler``,
-its device time and the time of its collectives: the host time of the
-``gloo:``/``nccl:`` ranges and the device time of NCCL's kernels.
+(ending in a device sync), the launches of the hand kernels K1 and K2 that
+their rank made (0 on the CPU) and the host time of their collectives
+(:data:`parallel.mesh.COLLECTIVE_SECONDS`); with ``profile=True``, from
+``torch.profiler``, its device time and the device time of NCCL's kernels.
 """
 
 from __future__ import annotations
@@ -69,10 +69,14 @@ def _sync(mesh: Mesh) -> None:
 
 
 def _timed(mesh: Mesh, fn, profile: bool = False):
-    """``fn()``'s result and its stats: ``secs``, ``launches``, and with ``profile``
-    ``device_ms``, ``collective_host_ms`` and ``collective_device_ms``."""
+    """``fn()``'s result and its stats: ``secs``, ``launches``, ``collective_ms`` (the
+    host ms of this rank's collectives, :data:`parallel.mesh.COLLECTIVE_SECONDS`), and
+    with ``profile`` ``device_ms`` and ``collective_device_ms``."""
+    from artist_style_transfer_tpu_torch.parallel import mesh as mesh_module
+
     _sync(mesh)
     _reset_launches()
+    mesh_module.COLLECTIVE_SECONDS = 0.0
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -89,7 +93,8 @@ def _timed(mesh: Mesh, fn, profile: bool = False):
         secs = time.perf_counter() - t0
         if prof is not None:
             prof.stop()
-    stats = {"secs": secs, "launches": _launches()}
+    stats = {"secs": secs, "launches": _launches(),
+             "collective_ms": mesh_module.COLLECTIVE_SECONDS * 1e3}
     if prof is not None:
         from torch.autograd import DeviceType
 
@@ -99,9 +104,6 @@ def _timed(mesh: Mesh, fn, profile: bool = False):
         stats["device_ms"] = sum(e.self_device_time_total for e in dev) / 1e3
         stats["collective_device_ms"] = sum(e.self_device_time_total for e in dev
                                             if "nccl" in e.key.lower()) / 1e3
-        stats["collective_host_ms"] = sum(
-            e.cpu_time_total for e in events if e.device_type == DeviceType.CPU
-            and e.key.startswith(("gloo:", "nccl:"))) / 1e3
     return out, stats
 
 
@@ -322,16 +324,9 @@ def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict,
                              quantize_gram=setup.get("quantize_gram", "auto"),
                              mesh=None if shape is None else mesh)
     r22 = loop.precompute_content_relu2_2(vgg, content)
-    out = {}
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
     with recorded_scales() if record_scales else contextlib.nullcontext([]) as scales:
-        losses = fns.step_fn(content, r22, setup["step"])
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        losses, mem = _peak_mem(dev, lambda: fns.step_fn(content, r22, setup["step"]))
+    out = {} if mem is None else {"peak_mem_gib": mem}
     if record_scales:
         out["scales"] = np.asarray(scales)
     return {"losses": losses.cpu().numpy().astype(np.float64),
@@ -339,46 +334,192 @@ def space_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict,
                       for k, p in model.named_parameters()}, **out}
 
 
+def _peak_mem(dev: torch.device, fn):
+    """``fn()``'s result and, on a CUDA ``dev``, its peak of allocated memory above what
+    was allocated before it, in GiB (None elsewhere)."""
+    if dev.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
 def train_classifier_rank(mesh: Mesh, images: np.ndarray, labels: np.ndarray,
-                          kwargs: dict, profile: bool = False) -> dict:
+                          kwargs: dict, profile: bool = False,
+                          shape: tuple[int, int] | None = None) -> dict:
     """``train_classifier(mesh=mesh, ...)`` on this rank: its history, the best
-    model's state (running statistics included), and the stats."""
+    model's state (running statistics included), and the stats, with ``peak_mem_gib``
+    on CUDA. ``shape``: over a ('data', 'space') mesh of that shape
+    (:func:`space_mesh`)."""
     from artist_style_transfer_tpu_torch.train.classifier import train_classifier
 
-    (best, history), stats = _timed(
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
+    ((best, history), stats), mem = _peak_mem(mesh.device, lambda: _timed(
         mesh, lambda: train_classifier(images, labels, mesh=mesh, device=mesh.device,
-                                       **kwargs), profile)
-    return {"history": history, "params": params_numpy(best), **stats}
+                                       **kwargs), profile))
+    return {"history": history, "params": params_numpy(best), "peak_mem_gib": mem, **stats}
+
+
+def classifier_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict) -> dict:
+    """``setup.get("steps", 1)`` ``train_classifier`` steps on one global batch
+    ``setup["x"]`` (NHWC, its dtype the steps') and ``setup["y"]`` (AdamW at
+    ``setup.get("lr", 0.0)``, constant, the body trainable unless ``setup["freeze_body"]``)
+    over a ('data', 'space') mesh of ``shape`` (None: one process, no mesh, on
+    ``setup.get("device", "cpu")``), as numpy: each step's synced [loss, accuracy]
+    (:func:`train.classifier.classifier_grads`), and the first step's gradients, BN
+    statistics and, on CUDA, ``peak_mem_gib`` (its peak of allocated memory above what was
+    allocated before it)."""
+    from artist_style_transfer_tpu_torch.models.resnet import update_running_stats
+    from artist_style_transfer_tpu_torch.parallel.mesh import shard_batch
+    from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
+    from artist_style_transfer_tpu_torch.train.classifier import (
+        classifier_grads,
+        make_classifier_optimizer,
+    )
+
+    mesh = space_mesh(mesh, shape) if shape is not None else None
+    dev = mesh.device if mesh is not None else torch.device(setup.get("device", "cpu"))
+    x = torch.as_tensor(setup["x"]).to(dev)
+    model = copy.deepcopy(setup["model"]).to(dev, x.dtype)
+    steps = setup.get("steps", 1)
+    opt, _ = make_classifier_optimizer(model, setup.get("lr", 0.0), steps, 1e-2,
+                                       setup["freeze_body"], "constant")
+    y, bands = torch.as_tensor(setup["y"], dtype=torch.int64).to(dev), None
+    if mesh is not None:
+        x, y = shard_batch(x, mesh), shard_batch(y, mesh)
+        bands = RowBands.even(mesh.axis_mesh("space"), x.shape[1])
+        x = x[:, slice(*bands.bounds())]
+    out = {"metrics": []}
+    for step in range(steps):
+        (metrics, stats), mem = _peak_mem(dev, lambda: classifier_grads(model, x, y, mesh, bands))
+        out["metrics"].append(metrics.cpu().numpy())
+        if step == 0:
+            out["grads"] = {k: p.grad.detach().cpu().numpy().copy()
+                            for k, p in model.named_parameters() if p.requires_grad}
+            out["stats"] = {k: (m.cpu().numpy(), v.cpu().numpy()) for k, (m, v) in stats.items()}
+            out["peak_mem_gib"] = mem
+        opt.step()
+        update_running_stats(model, stats)
+    out["metrics"] = np.stack(out["metrics"])
+    return out
 
 
 def evaluate_rank(mesh: Mesh, model, classifier, images, artist_index: int,
-                  kwargs: dict, profile: bool = False) -> dict:
+                  kwargs: dict, profile: bool = False, shape: tuple[int, int] | None = None,
+                  record_k2: bool = False) -> dict:
     """``evaluate_with_classifier(mesh=mesh, ...)`` on this rank: the accuracy, what the
-    rank printed, and the stats."""
+    rank printed, and the stats. ``shape``: over a ('data', 'space') mesh of that shape
+    (:func:`space_mesh`); ``record_k2``: also K2's launches by shape
+    (:func:`recorded_k2`), under "k2_calls", as [arguments, count]."""
     from artist_style_transfer_tpu_torch.infer.evaluate import evaluate_with_classifier
 
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
     model, classifier = _on(model, mesh.device), _on(classifier, mesh.device)
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with (contextlib.redirect_stdout(out),
+          recorded_k2() if record_k2 else contextlib.nullcontext({}) as calls):
         acc, stats = _timed(mesh, lambda: evaluate_with_classifier(
             model, classifier, images, artist_index, mesh=mesh, device=mesh.device, **kwargs),
             profile)
+    if record_k2:
+        stats["k2_calls"] = list(calls.values())
     return {"acc": acc, "stdout": out.getvalue(), **stats}
 
 
+def eval_logits_rank(mesh: Mesh, shape: tuple[int, int] | None, model, classifier,
+                     images: np.ndarray, crop_size: int, quantize: bool = False) -> dict:
+    """The logits of one batch as ``evaluate_with_classifier`` computes them on this
+    rank: over a ('data', 'space') mesh of ``shape``, this rank's data slice, on its band
+    of rows; ``shape=None`` the whole batch in one process. ``quantize``: the int8
+    pipeline, calibrated on the batch's first two images as the entry point does."""
+    from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, quantize_eval_pipeline
+    from artist_style_transfer_tpu_torch.parallel.distributed import make_global
+    from artist_style_transfer_tpu_torch.parallel.mesh import shard_batch
+    from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
+
+    mesh = space_mesh(mesh, shape) if shape is not None else None
+    dev = mesh.device if mesh is not None else torch.device("cpu")
+    model, classifier = _on(model, dev), _on(classifier, dev)
+    if quantize:
+        model, classifier = quantize_eval_pipeline(model, classifier, images[:2])
+        make_global(mesh, (model, classifier))
+    x, bands = torch.as_tensor(images), None
+    if mesh is not None:
+        x = shard_batch(x, mesh)
+        bands = RowBands.even(mesh.axis_mesh("space"), x.shape[1])
+        x = x[:, slice(*bands.bounds())]
+    logits = eval_logits(model, classifier, x.to(dev), crop_size, mesh, bands)
+    return {"logits": logits.float().cpu().numpy()}
+
+
+def diffusion_rank(mesh: Mesh, images: np.ndarray, labels: np.ndarray, kwargs: dict,
+                   shape: tuple[int, int] | None = None, profile: bool = False) -> dict:
+    """``train_diffusion(mesh=mesh, ...)`` on this rank: its per-epoch losses, the
+    returned model's params and the stats. ``shape``: over a ('data', 'space') mesh of
+    that shape (:func:`space_mesh`)."""
+    from artist_style_transfer_tpu_torch.diffusion.train import train_diffusion
+
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
+    (model, _, losses), stats = _timed(
+        mesh, lambda: train_diffusion(images, labels, mesh=mesh, device=mesh.device,
+                                      **kwargs), profile)
+    return {"losses": losses, "params": params_numpy(model), **stats}
+
+
+def diffusion_step_rank(mesh: Mesh, shape: tuple[int, int] | None, setup: dict) -> dict:
+    """One ``diffusion_step`` of the global batch ``setup`` (``model``, ``x0`` NHWC in
+    [-1, 1], ``y``, ``t``, ``noise``, ``num_timesteps``) with Adam at lr 0, over a
+    ('data', 'space') mesh of ``shape`` (None: one process, no mesh): the synced loss
+    and every parameter's synced gradient, as numpy; on CUDA also ``peak_mem_gib``, the
+    step's peak of allocated memory above what was allocated before it."""
+    from artist_style_transfer_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from artist_style_transfer_tpu_torch.diffusion.train import diffusion_step
+    from artist_style_transfer_tpu_torch.parallel.mesh import shard_batch
+    from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
+
+    mesh = space_mesh(mesh, shape) if shape is not None else None
+    dev = mesh.device if mesh is not None else torch.device(setup.get("device", "cpu"))
+    model = copy.deepcopy(setup["model"]).to(dev)
+    diffusion = GaussianDiffusion.make(setup["num_timesteps"], device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.0)
+    x0, y, t, noise = (torch.as_tensor(np.asarray(setup[k])).to(dev)
+                       for k in ("x0", "y", "t", "noise"))
+    bands = None
+    if mesh is not None:
+        x0, y, t, noise = (shard_batch(a, mesh) for a in (x0, y, t, noise))
+        bands = RowBands.even(mesh.axis_mesh("space"), x0.shape[1])
+        a, b = bands.bounds()
+        x0, noise = x0[:, a:b], noise[:, a:b]
+    loss, mem = _peak_mem(dev, lambda: diffusion_step(
+        model, opt, diffusion, x0, y, t, noise, mesh=mesh, bands=bands))
+    return {"loss": float(loss), "peak_mem_gib": mem,
+            "grads": {k: p.grad.detach().cpu().numpy().copy()
+                      for k, p in model.named_parameters()}}
+
+
 def stylize_rows_rank(mesh: Mesh, model, image: np.ndarray, clip: bool,
-                      profile: bool = False, record_k2: bool = False) -> dict:
+                      profile: bool = False, record_k2: bool = False,
+                      shape: tuple[int, int] | None = None) -> dict:
     """``stylize_spatial`` (a ``TransformerNet``) or ``stylize_spatial_int8`` (a
     ``QuantizedTransformerNet``) of ``image`` on this rank: the whole output as this
     rank returns it, and the stats. ``record_k2``: also the arguments of one K2 launch
     of each distinct shape the call made (the int8 codes as numpy, the rest as they
-    were) with its count, for holding K2 against its plain version at the band shapes."""
+    were) with its count, for holding K2 against its plain version at the band shapes.
+    ``shape``: over a ('data', 'space') mesh of that shape (:func:`space_mesh`)."""
     from artist_style_transfer_tpu_torch.infer.stylize import (
         stylize_spatial,
         stylize_spatial_int8,
     )
     from artist_style_transfer_tpu_torch.models.transformer_q import QuantizedTransformerNet
 
+    if shape is not None:
+        mesh = space_mesh(mesh, shape)
     model = _on(model, mesh.device)
     fn = stylize_spatial_int8 if isinstance(model, QuantizedTransformerNet) else stylize_spatial
     with recorded_k2() if record_k2 else contextlib.nullcontext({}) as calls:

@@ -75,7 +75,7 @@ from artist_style_transfer_tpu_torch.models.vgg import (
     quantize_vgg16_loss,
 )
 from artist_style_transfer_tpu_torch.parallel.distributed import make_global
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, train_mesh
+from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, check_mesh
 from artist_style_transfer_tpu_torch.train import checkpoint as ckpt
 from artist_style_transfer_tpu_torch.train.loop import (
     COMPUTE_DTYPES,
@@ -104,7 +104,7 @@ def _check_options(*, mesh, qat, quantize_loss, quantize_gram, fold_batch) -> No
         raise ValueError(f"fold_batch must be one of {_FOLD_BATCH}, got {fold_batch!r}")
     check_int8_options(qat, quantize_gram)
     first_q = first_quantized_conv(_vgg_layers(quantize_loss)) if quantize_loss else None
-    train_mesh(mesh)
+    check_mesh(mesh)
     if first_q is not None and first_q < 4 and fold_batch in (True, "vgg"):
         raise NotImplementedError(  # JAX train/loop.py:301-309
             "fold_batch training needs the shallow VGG blocks in bf16: "

@@ -27,6 +27,18 @@ the whole batch's statistics and folds them into its running buffers
 (``batch_norm_train(mesh=)``); the gradients, the loss and the accuracy are
 averaged over the ranks in one all-reduce before AdamW, so every rank holds the
 same model. Validation counts each rank's correct answers and all-reduces them.
+
+A ('data', 'space') mesh (JAX's ``P("data", "space")``) also spreads each image's rows
+over the 'space' ranks: every rank draws the global batch's flips and crop offsets from
+the same generator and cuts its images' band out of the augmented canvas (the corpus
+is resident on every rank, so the crop's shifted rows need no exchange); the ResNet-50
+runs train-mode on the bands (:func:`models.resnet.classifier_apply_train_rows`), the
+body's BN statistics over every rank's rows, the head's over the 'data' line; the
+cross-entropy is taken on the logits every rank of a 'space' line holds whole. The
+body's gradients are the parts from each rank's rows, summed over every rank; the
+head's are whole on each 'space' rank and are summed over the 'data' line alone. Both
+are divided by the number of data slices. Validation runs the frozen net on bands.
+The ranks must divide the images' height.
 """
 
 from __future__ import annotations
@@ -43,11 +55,19 @@ import torch.nn.functional as F
 from artist_style_transfer_tpu_torch.models.resnet import (
     ResNet50Classifier,
     classifier_apply_train,
+    classifier_apply_train_rows,
     init_classifier,
     update_running_stats,
 )
 from artist_style_transfer_tpu_torch.parallel.distributed import make_global
-from artist_style_transfer_tpu_torch.parallel.mesh import Mesh, data_parallel, shard_batch
+from artist_style_transfer_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_mesh,
+    data_size,
+    shard_batch,
+    spatial_size,
+)
+from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
 from artist_style_transfer_tpu_torch.train.loop import epoch_permutation, sync_gradients
 from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
 from artist_style_transfer_tpu_torch.utils.logging import MetricLogger
@@ -154,21 +174,29 @@ def make_classifier_optimizer(
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
-def augment_batch(generator: torch.Generator, x: torch.Tensor, pad: int = 8) -> torch.Tensor:
+def augment_batch(generator: torch.Generator, x: torch.Tensor, pad: int = 8,
+                  mesh: Mesh | None = None, rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Train-time augmentation of an NHWC batch (JAX ``augment_batch``): a random
     horizontal flip of each image, then a random crop of its size from the
     reflect-padded canvas. Draws from ``generator``, which must live on ``x``'s
-    device, so no value crosses to the host."""
+    device, so no value crosses to the host.
+
+    ``mesh``: ``x`` is the global batch, and only this rank's slice of it
+    (:func:`parallel.mesh.shard_batch`) is augmented, from the draws of the whole batch;
+    ``rows``: only the rows ``[a, b)`` of each augmented image. Either way the result
+    is that part of the whole batch's augmentation, bit for bit."""
     n, h, w, _ = x.shape
     dev = x.device
     flip = torch.rand(n, generator=generator, device=dev) < 0.5
-    x = torch.where(flip.view(n, 1, 1, 1), x.flip(2), x)
-    xp = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect").permute(0, 2, 3, 1)
     oh = torch.randint(0, 2 * pad + 1, (n,), generator=generator, device=dev)
     ow = torch.randint(0, 2 * pad + 1, (n,), generator=generator, device=dev)
-    rows = (oh[:, None] + torch.arange(h, device=dev))[:, :, None]
+    x, flip, oh, ow = (shard_batch(t, mesh) for t in (x, flip, oh, ow))
+    x = torch.where(flip.view(-1, 1, 1, 1), x.flip(2), x)
+    xp = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect").permute(0, 2, 3, 1)
+    a, b = rows or (0, h)
+    rows_at = (oh[:, None] + torch.arange(a, b, device=dev))[:, :, None]
     cols = (ow[:, None] + torch.arange(w, device=dev))[:, None, :]
-    return xp[torch.arange(n, device=dev)[:, None, None], rows, cols]
+    return xp[torch.arange(x.shape[0], device=dev)[:, None, None], rows_at, cols]
 
 
 def _split_train_val(n: int, val_fraction: float, seed: int):
@@ -179,33 +207,76 @@ def _split_train_val(n: int, val_fraction: float, seed: int):
     return perm[n_val:], perm[:n_val]
 
 
+def _space_bands(mesh: Mesh | None, height: int) -> RowBands | None:
+    """The bands of ``height`` rows over ``mesh``'s 'space' line; None without one. A
+    height the line does not divide raises ``ValueError``, as JAX's ``device_put`` of
+    the sharded batch does."""
+    return RowBands.even(mesh.axis_mesh("space"), height) if spatial_size(mesh) > 1 else None
+
+
 def evaluate_classifier(model: ResNet50Classifier, images, labels, batch_size: int = 64,
                         mesh: Mesh | None = None) -> float:
     """Inference-mode accuracy of ``model`` over ``(images, labels)`` (JAX
     ``evaluate_classifier``), in batches on the model's device, the last one ragged.
     ``images``: NHWC RGB torchvision-normalized (numpy or a tensor).
 
-    With ``mesh`` each rank classifies its slice of every batch the ranks divide and
-    the correct counts are all-reduced; a batch they do not divide runs whole on
-    every rank and counts once (JAX shards only a divisible batch)."""
-    data_parallel(mesh)
+    With ``mesh`` each data slice classifies its slice of every batch the slices divide
+    and the correct counts are all-reduced over the 'data' line; a batch they do not
+    divide runs whole on every data slice and counts once (JAX shards only a divisible
+    batch). A 'space' axis runs the frozen net on each rank's band of rows
+    (``forward_rows``), its logits the same on every rank of a 'space' line."""
+    check_mesh(mesh)
     dev = module_device(model)
     n = len(images)
+    bands = _space_bands(mesh, images[0].shape[0]) if n else None
     labels = torch.as_tensor(np.asarray(labels), device=dev)
     correct = torch.zeros((), dtype=torch.int64, device=dev)
     sharded = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def logits(x):
+        if bands is None:
+            return model(x.to(dev, torch.float32))
+        return model.forward_rows(x[:, slice(*bands.bounds())].to(dev, torch.float32), bands)
+
     with torch.inference_mode():
         for start in range(0, n, batch_size):
-            xb = torch.as_tensor(images[start: start + batch_size]).to(dev, torch.float32)
+            xb = torch.as_tensor(images[start: start + batch_size])
             yb = labels[start: start + batch_size]
-            if mesh is not None and xb.shape[0] % mesh.size == 0:
-                sharded += (model(shard_batch(xb, mesh)).argmax(-1)
+            if mesh is not None and xb.shape[0] % data_size(mesh) == 0:
+                sharded += (logits(shard_batch(xb, mesh)).argmax(-1)
                             == shard_batch(yb, mesh)).sum()
             else:
-                correct += (model(xb).argmax(-1) == yb).sum()
+                correct += (logits(xb).argmax(-1) == yb).sum()
     if mesh is not None:
-        mesh.all_reduce_(sharded)
+        mesh.axis_mesh("data").all_reduce_(sharded)
     return int(correct + sharded) / max(n, 1)
+
+
+def classifier_grads(model: ResNet50Classifier, xb: torch.Tensor, yb: torch.Tensor,
+                     mesh: Mesh | None = None, bands: RowBands | None = None):
+    """One step's cross-entropy and the gradients of ``model``'s trainable parameters,
+    left in their ``.grad`` (JAX's ``value_and_grad`` of the step's loss): returns the
+    [loss, accuracy] pair and the BN statistics (:func:`models.resnet.classifier_apply_train`).
+    With ``mesh`` ``xb`` and ``yb`` are this rank's slice, and with ``bands`` ``xb`` this
+    rank's band of its rows; the gradients and the pair come back synced (the module
+    docstring): over 'space' the head's gradients, whole on every rank of a 'space'
+    line, are summed over the 'data' line alone."""
+    if bands is None:
+        logits, stats = classifier_apply_train(model, xb, mesh=mesh)
+    else:
+        logits, stats = classifier_apply_train_rows(model, xb, bands, mesh)
+    loss = F.cross_entropy(logits, yb)
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    metrics = torch.stack([loss, (logits.argmax(-1) == yb).float().mean()]).detach()
+    if mesh is not None:
+        trained = [(name, p) for name, p in model.named_parameters() if p.requires_grad]
+        head = [p for name, p in trained if bands is not None and name.startswith("1.")]
+        body = [p for name, p in trained if bands is None or not name.startswith("1.")]
+        metrics = sync_gradients(body, metrics, mesh, sharded=True)
+        if head:
+            sync_gradients(head, metrics[:0], mesh.axis_mesh("data"), sharded=True)
+    return metrics, stats
 
 
 def train_classifier(
@@ -241,10 +312,10 @@ def train_classifier(
     ``best_model`` is the snapshot of highest validation accuracy (ties: the earliest),
     or the final model without a validation split; it comes back frozen, like a
     loaded classifier. ``history`` has per-epoch ``train_loss``, ``train_acc`` and
-    ``val_acc``. ``mesh`` trains data-parallel (the module docstring); its size must
-    divide ``batch_size``, and only rank 0 logs.
+    ``val_acc``. ``mesh`` trains data-parallel, and with a 'space' axis on row bands
+    (the module docstring); its size must divide ``batch_size``, and only rank 0 logs.
     """
-    data_parallel(mesh)
+    check_mesh(mesh)
     dev = resolve_device(device)
     if mesh is not None:
         if batch_size % mesh.size:
@@ -260,6 +331,8 @@ def train_classifier(
         raise ValueError(
             f"train split ({len(train_idx)}) smaller than batch_size ({batch_size})")
     steps_per_epoch = len(train_idx) // batch_size  # drop-last, fastai-style
+    bands = _space_bands(mesh, images.shape[1])
+    rows = None if bands is None else bands.bounds()
 
     if model is None:
         model = init_classifier(torch.Generator().manual_seed(seed), dev, num_classes)
@@ -268,7 +341,6 @@ def train_classifier(
     make_global(mesh, model)
     opt, sched = make_classifier_optimizer(model, lr, num_epochs * steps_per_epoch,
                                            weight_decay, freeze_body, schedule)
-    trained = [p for p in model.parameters() if p.requires_grad]
 
     corpus = torch.as_tensor(images[train_idx]).to(dev)
     corpus_labels = torch.as_tensor(labels[train_idx], dtype=torch.int64).to(dev)
@@ -287,17 +359,13 @@ def train_classifier(
             sums = torch.zeros(2, device=dev)  # loss, accuracy: read once, at the epoch's end
             for s in range(steps_per_epoch):
                 idx = perm[s * batch_size: (s + 1) * batch_size]
-                xb, yb = corpus[idx], corpus_labels[idx]
+                xb, yb = corpus[idx], shard_batch(corpus_labels[idx], mesh)
                 if aug is not None:
-                    xb = augment_batch(aug, xb)
-                xb, yb = shard_batch(xb, mesh), shard_batch(yb, mesh)
-                logits, stats = classifier_apply_train(model, xb, mesh=mesh)
-                loss = F.cross_entropy(logits, yb)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                metrics = torch.stack([loss, (logits.argmax(-1) == yb).float().mean()]).detach()
-                if mesh is not None:
-                    metrics = sync_gradients(trained, metrics, mesh, sharded=True)
+                    xb = augment_batch(aug, xb, mesh=mesh, rows=rows)
+                else:
+                    xb = shard_batch(xb, mesh)
+                    xb = xb if rows is None else xb[:, rows[0]: rows[1]]
+                metrics, stats = classifier_grads(model, xb, yb, mesh, bands)
                 opt.step()
                 sched.step()
                 update_running_stats(model, stats, bn_momentum)

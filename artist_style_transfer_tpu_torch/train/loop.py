@@ -112,9 +112,9 @@ from artist_style_transfer_tpu_torch.ops.losses import (
 )
 from artist_style_transfer_tpu_torch.parallel.mesh import (
     Mesh,
+    check_mesh,
+    data_size,
     shard_batch,
-    spatial_size,
-    train_mesh,
 )
 from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
@@ -202,7 +202,7 @@ def make_step_fns(
     ``mesh`` makes the step data-parallel over its ranks, and with a 'space' axis
     spreads each image's rows over that axis's ranks (the module docstring).
     """
-    train_mesh(mesh)
+    check_mesh(mesh)
     if mode == "classifier" and (classifier is None or targets.labels is None):
         raise ValueError("'classifier' training needs a classifier and the targets' labels")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -310,7 +310,7 @@ def make_step_fns(
         # ragged tail only where the mesh's size divides it, as JAX's ``tail_mesh``.
         n = batch.shape[0]
         sharded = mesh is not None and (local or n % (
-            mesh.size if n < batch_size else mesh.size // spatial_size(mesh)) == 0)
+            mesh.size if n < batch_size else data_size(mesh)) == 0)
         if sharded and not local:
             batch, content_r22 = shard_batch(batch, mesh), shard_batch(content_r22, mesh)
             if banded:
@@ -381,7 +381,7 @@ def sync_gradients(params: list[torch.Tensor], losses: torch.Tensor, mesh: Mesh,
     n_grads = flat.numel() - losses.numel()
     if sharded:
         mesh.all_reduce_(flat)
-        flat[:n_grads].div_(mesh.size // spatial_size(mesh))
+        flat[:n_grads].div_(data_size(mesh))
         flat[n_grads:].div_(mesh.size)
     else:
         mesh.broadcast_(flat)

@@ -203,12 +203,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``torch.bmm``'s, the bound), and K2 against its plain version at every shape the
     int8 runs' ranks launched it at, forward and dgrad (``qconv`` lines with path
     ``train_space``, warm times); wall seconds and rank 0's ``gloo:`` host ms;
-17. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
+17. space_more: evaluation, artist-classifier training and diffusion training over a
+    ('data', 'space') mesh at full width on gloo ranks on the card, against their one
+    process in this process: ``evaluate_with_classifier`` of one 1024x1024, B=4 batch
+    (crop 256), f32 and ``quantize=True``, over (1, 2) and (2, 2) (``Acc=``/``Pred=``
+    equal, f32 logits within 1e-3 of max, 0 K1, K2 68 a rank in int8 and exact at every
+    band shape: ``qconv`` lines with path ``eval_int8_space``); ``train_classifier`` at
+    256x256, B=32, 160 images over (1, 2), one epoch frozen (within 5e-3) and one
+    unfrozen (read beside the one process's own run-to-run distance), an unfrozen
+    512x512, B=8 step (within 1e-4; peak memory a rank); ``train_diffusion`` at the CLI's
+    defaults, 128 images, one epoch over (1, 2) and (2, 2) (within 1e-4), a 256x256, B=8
+    step (peak memory a rank); ranks bit-identical; ms a step and rank 0's gloo ms;
+18. kernel_rows: K1 at the DP 'cycle' rank's taps (224x224, N=2) and K2 at the serve
     batches' shapes (``stylize_int8`` 512x512 and the int8 classify 256x256 at B = 1, 2
     and 8), the sharded int8 eval's (N=2) and one DP int8 training step's (N=2), each
     recorded from the path's own function and held against its plain version, with
     warm times, bounds and the library yardsticks;
-18. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
+19. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
     64, 19 classes, T = 1000, B = 32, 15,118,659 parameters): ``diff_model_apply`` with
     every weight redrawn (within 1e-4 of max of the port's CPU) and guided DDIM-50 from
     one x_T (> 45 dB against the CPU); ``train_diffusion`` for 2 epochs on 128 seeded
@@ -220,7 +231,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     generated images, 80 epochs, base 32, cosine) for its 12 sampler configurations,
     with the orderings of ``tests/test_diffusion.py`` held at 3 decimals; K1 and K2
     0 launches on every one of these paths;
-19. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+20. the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read images (``eval``'s CLI step, ``data``,
@@ -360,6 +371,23 @@ SPACE_INT8_RTOL = 1e-2  # the banded int8 runs' per-step losses against one proc
 # its targets' (the int8 VGG16's forward of the 8 paintings): phase int8_train's counts.
 SPACE_K2_STEP = {"qloss": 2 * QCONV_VGG_DEEP, "qat_qgram": 2 * QCONV_QAT["trunk"],
                  "qat_all": 2 * QCONV_QAT["all"], "qclf": 2 * QCONV_RESNET}
+# Phase space_more: evaluation, artist-classifier and diffusion training over a ('data',
+# 'space') mesh, each against its one process in the phase's own process.
+SPACE_MORE_EVAL = 4  # one eval batch of the eval phase's 1024² images, B=4, crop 256
+SPACE_MORE_CLF_EPOCHS = 1  # train_classifier at 256², B=32, 160 images: 4 steps, each freeze
+SPACE_MORE_DIFF_IMAGES = 128  # train_diffusion at the CLI's defaults, one epoch: 4 steps
+SPACE_MORE_DIFF_RTOL = 1e-4
+# The first step's synced gradients of the 256² UNet step over (1, 2) and the 512²
+# classifier step's BN statistics: each leaf within this share of its module's largest
+# entry of the one process's (statistics: of its own). The classifier's f32 gradients are
+# read, not held: this ResNet-50 in train mode turns rounding into a 3% L2 difference of
+# its body's gradients (f32 against f64 on the CPU, the bands against one process on
+# the card); the same step in f64 is held at SPACE_MORE_F64_RTOL.
+SPACE_MORE_GRAD_RTOL = 1e-4
+SPACE_MORE_STATS_RTOL = 1e-3
+SPACE_MORE_F64_RTOL = 1e-6
+SPACE_MORE_MEM = {"classifier": 512, "diffusion": 256}  # one step at B=8: peak memory a rank
+SPACE_MORE_MEM_BATCH = 8
 SERVE_ROW_BATCHES = (1, 2, 8)  # phase kernel_rows: K2 at the serve batches (4 is phase int8's)
 # Phase diffusion at the diffusion CLI's defaults (JAX diffusion/cli.py:20-29).
 DIFF_SIZE = 64
@@ -413,6 +441,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_ms's readings by the kernel name they count and by their source: "profiler", or
+# "events" where no profiled window recorded any device event. The kernels line reads it.
+DEVICE_MS_SOURCES: dict[str, dict[str, int]] = {}
+
+
 def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 5) -> float:
     """Device time per call of ``fn`` from ``torch.profiler``, with L2 flushed before each call.
 
@@ -422,7 +455,10 @@ def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 5) -> float:
     device events (seen on the H100 machine: 11 or 18 of 20 launches
     recorded), so each window is a warm-up cycle of the profiler followed by
     the recorded one, and a window that still lost events is taken again, up
-    to ``attempts`` times.
+    to ``attempts`` times. Where no window recorded any device event, each flushed
+    call is timed with CUDA events instead, an upper bound that covers every kernel of
+    ``fn``: a ``device_ms_fallback`` line says so, and :data:`DEVICE_MS_SOURCES` counts
+    the reading under "events".
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -430,6 +466,8 @@ def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 5) -> float:
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     fn()
     torch.cuda.synchronize()
+    sources = DEVICE_MS_SOURCES.setdefault(kernel, {"profiler": 0, "events": 0})
+    blind = True
     for _ in range(attempts):
         recorded = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -450,7 +488,26 @@ def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 5) -> float:
                 and "FillFunctor" not in ev.key and kernel in ev.key]
         launches = sum(ev.count for ev in rows)
         if launches > 0 and launches % iters == 0:
+            sources["profiler"] += 1
             return sum(ev.self_device_time_total for ev in rows) / 1e3 / iters
+        blind = blind and not any(ev.device_type == DeviceType.CUDA
+                                  for ev in (recorded or [[]])[0])
+    if blind:
+        # No device event at all in any window: the profiler lost the card (seen once on
+        # the H100 machine, after many profiled phases). Time each flushed call with CUDA
+        # events instead, an upper bound on the device time (launch gaps included).
+        emit("device_ms_fallback", kernel=kernel, attempts=attempts)
+        total = 0.0
+        for _ in range(iters):
+            flush.fill_(1.0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        sources["events"] += 1
+        return total / iters
     raise SystemExit(f"chip_smoke: FAILED: device_ms: {launches} launches of '{kernel}' "
                      f"recorded over {iters} calls, {attempts} times: "
                      f"{[(ev.key[:60], ev.count) for ev in rows]}")
@@ -3033,18 +3090,18 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
     emit("parallel", ranks=PAR_RANKS, backends={"part1": backend1, "part2": "gloo"},
          part1_wall_s=part1_s, part2_wall_s=part2_s,
          part1_device_ms=stat(runs1, "device_ms"), part2_rank0_device_ms=stat(runs2, "device_ms"),
-         part1_nccl_host_ms=stat(runs1, "collective_host_ms"),
+         part1_nccl_host_ms=stat(runs1, "collective_ms"),
          part1_nccl_device_ms=stat(runs1, "collective_device_ms"),
-         part2_rank0_gloo_host_ms=stat(runs2, "collective_host_ms"),
+         part2_rank0_gloo_host_ms=stat(runs2, "collective_ms"),
          world_of_one={k: (v if not isinstance(v, dict) else
                            {kk: v[kk] for kk in ("secs", "launches", "device_ms",
-                                                 "collective_host_ms", "collective_device_ms",
+                                                 "collective_ms", "collective_device_ms",
                                                  "psnr_db") if kk in v})
                        for k, v in one.items()},
          two_ranks={**two, "codes_equal": codes_ok, "int32_equal": acc_ok,
                     "eval_int8_acc": eval_r["acc"],
                     "jobs": {name: {kk: r[kk] for kk in ("secs", "launches", "device_ms",
-                                                        "collective_host_ms") if kk in r}
+                                                        "collective_ms") if kk in r}
                              for name, r in zip(("train_dp", "stylize_spatial",
                                                  "stylize_spatial_int8", "first_conv",
                                                  "eval_int8_dp", "train_classifier_dp",
@@ -3250,7 +3307,7 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
     require(not on_card or step_taps, f"space_train: K1 missed a (1, 2) band tap: {band}")
     mem = {"one_process": mem_one.get("peak_mem_gib"),
            "ranks_1x2": [r[3].get("peak_mem_gib") for r in two]}
-    timing = {name: {k: r.get(k) for k in ("secs", "device_ms", "collective_host_ms")}
+    timing = {name: {k: r.get(k) for k in ("secs", "device_ms", "collective_ms")}
               for name, r in (("s12_rank0", two[0][0]), ("s22_rank0", four[0][0]))}
     emit("space_train", size=size, batch=TRAIN_BATCH, steps=steps * wide_epochs,
          one_process_s=one_s, solo_s=solo_s, two_rank_launch_s=two_s,
@@ -3399,6 +3456,309 @@ def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str
          mem_size=mem_size, card=smi)
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2": k2,
             "k1_shapes": k1_shapes}
+
+
+def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
+                     eval_size: int = EVAL_SIZE, crop: int = 256,
+                     clf_size: int = ARTIST_CLF_SIZE, clf_n: int = ARTIST_CLF_IMAGES,
+                     clf_batch: int = ARTIST_CLF_BATCH, clf_rtol: float = PAR_CLF_RTOL,
+                     diff_size: int = DIFF_SIZE, diff_base: int = DIFF_BASE, diff_T: int = DIFF_T,
+                     diff_n: int = SPACE_MORE_DIFF_IMAGES, mem: dict | None = None,
+                     grad_rtol: float = SPACE_MORE_GRAD_RTOL,
+                     stats_rtol: float = SPACE_MORE_STATS_RTOL) -> dict:
+    """Evaluation, artist-classifier training and diffusion training over a ('data',
+    'space') mesh at full width, each image's rows over the 'space' ranks, on gloo ranks
+    on cuda:0 (NCCL refuses two ranks on one card). In this process first: the one-process
+    runs. Then one launch of 2 ranks with mesh (1, 2) and one of 4 with mesh (2, 2):
+
+    - (a) ``evaluate_with_classifier`` of one batch of the eval phase's 1024² images, B=4,
+      crop 256, f32 (the seeded classifier) and ``quantize=True`` (the decisive one), over
+      (1, 2) and (2, 2): ``Acc=`` and ``Pred=`` equal to the one process's, the f32 logits
+      within 1e-3 of its largest with its argmax, 0 K1 launches, 68 K2 launches a rank in
+      int8 (16 TransformerNet and 52 ResNet-50 convs), and K2 held against its plain
+      version at every band shape the ranks launched it at;
+    - (b) ``train_classifier`` at 256², B=32, on 160 seeded paintings, one epoch with
+      ``freeze_body=True`` and one unfrozen, over (1, 2): the frozen epoch's loss within
+      ``clf_rtol`` of the one process (the DP bar), the unfrozen one's printed beside
+      the one process's own distance from a second run of it (read, not held: see
+      PERF.md §6), the ranks' params and running
+      statistics bit-identical, the frozen convs bit-unchanged, 0 K1 and 0 K2; and one
+      unfrozen step at 512², B=8: its loss within 1e-4 of the one process's, its synced
+      gradients and BN statistics bit-identical on the ranks, the statistics within
+      ``stats_rtol`` of each leaf's largest of the one process's, the gradients' distance
+      printed, and each rank's peak memory beside the one process's; the same step in
+      f64, its gradients and statistics within ``SPACE_MORE_F64_RTOL`` of each leaf's
+      (gradients: its module's) largest of the one process's;
+    - (c) ``train_diffusion`` at the diffusion CLI's defaults (64², base 64, B=32, T=1000,
+      19 classes) on 128 seeded images, one epoch, over (1, 2) and (2, 2), from a UNet
+      with redrawn weights (:func:`redrawn_diff_model`: the init's near-zero output convs
+      make the loss about mean(noise²) whatever the UNet computes): the epoch loss within
+      1e-4 of the one process, the ranks bit-identical, 0 K1 and 0 K2; and one step at
+      256², B=8, from redrawn weights too: its loss within 1e-4, its synced gradients
+      bit-identical on the ranks and each leaf within ``grad_rtol`` of its module's
+      largest of the one process's, and each rank's peak memory beside the one process's.
+      Each step is run twice in the one process, and the distance of the two printed
+      beside the bands'.
+
+    Every run's ms a step and rank 0's host ms in gloo's collectives
+    (``parallel.mesh.COLLECTIVE_SECONDS``; the profiler would add 10-40 s a run) are
+    printed. Returns the kernels
+    line's launches and K2's band-shape sums. ``device="cpu"`` (with small sizes, and bars
+    ``clf_rtol``, ``grad_rtol`` and ``stats_rtol`` for them) rehearses it over gloo on the CPU, without the
+    K2 checks."""
+    from artist_style_transfer_tpu_torch.diffusion.train import train_diffusion
+    from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, evaluate_with_classifier
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
+    from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19, init_classifier
+    from artist_style_transfer_tpu_torch.parallel import launch, workers
+    from artist_style_transfer_tpu_torch.train.classifier import train_classifier
+
+    on_card = device == "cuda"
+    mem = dict(SPACE_MORE_MEM, **(mem or {}))
+    artist = ARTISTS_19.index(CLF_ARTIST)
+    model = load_transfer_params(os.path.join(GOLDENS, "golden_transfer.pth"), device="cpu")
+    clf, dclf = seeded_classifier("cpu"), decisive_classifier("cpu", artist)
+    images = [np.ascontiguousarray(im[:eval_size, :eval_size])
+              for im in eval_data()[:SPACE_MORE_EVAL]]
+    eval_kw = dict(batch_size=SPACE_MORE_EVAL, artists=ARTISTS_19, crop_size=crop)
+    corpus, labels = artist_corpus(clf_n, clf_size)
+    clf_kw = {f: dict(num_classes=ARTIST_CLF_CLASSES, num_epochs=SPACE_MORE_CLF_EPOCHS,
+                      batch_size=clf_batch, freeze_body=f, wordy=False) for f in (True, False)}
+    clf_steps = int(round(clf_n * 0.8)) // clf_batch * SPACE_MORE_CLF_EPOCHS
+    dimgs, dlabels = synthetic_paintings(diff_n, 3, diff_size, DIFF_CLASSES)
+    diff_kw = dict(num_classes=DIFF_CLASSES, num_timesteps=diff_T, num_epochs=1,
+                   batch_size=DIFF_BATCH, base_channels=diff_base, wordy=False,
+                   params=redrawn_diff_model(DIFF_CLASSES, diff_base, 5))
+    diff_steps = diff_n // DIFF_BATCH
+    rng = np.random.default_rng(14)
+    b = SPACE_MORE_MEM_BATCH
+    clf_mem = dict(model=init_classifier(torch.Generator().manual_seed(2),
+                                         num_classes=ARTIST_CLF_CLASSES),
+                   x=rng.standard_normal((b, mem["classifier"], mem["classifier"], 3)).astype(
+                       np.float32), y=np.arange(b) % ARTIST_CLF_CLASSES, freeze_body=False,
+                   device=device)
+    hd = mem["diffusion"]
+    diff_mem = dict(model=redrawn_diff_model(DIFF_CLASSES, diff_base, 6),
+                    x0=rng.uniform(-1, 1, (b, hd, hd, 3)).astype(np.float32),
+                    y=np.arange(b) % DIFF_CLASSES, t=rng.integers(0, diff_T, b),
+                    noise=rng.standard_normal((b, hd, hd, 3)).astype(np.float32),
+                    num_timesteps=diff_T, device=device)
+
+    # The one process, in this process, no mesh.
+    t0 = time.perf_counter()
+    one_eval = {}
+    for name, c, q in (("f32", clf, False), ("int8", dclf, True)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            acc, _, k = counted(lambda: evaluate_with_classifier(
+                copy_to(model, device), copy_to(c, device), images, artist, quantize=q,
+                device=device, **eval_kw))
+        one_eval[name] = (acc, out.getvalue(), k)
+    with torch.inference_mode():
+        one_logits = eval_logits(copy_to(model, device), copy_to(clf, device),
+                                 torch.as_tensor(np.stack(images)).to(device), crop).cpu().numpy()
+    one_clf = {f: counted(lambda: train_classifier(corpus, labels, device=device, **kw))
+               for f, kw in clf_kw.items()}
+    # The unfrozen body's epoch is read beside the one process's own run-to-run distance
+    # (cuDNN's backward algorithms): Adam moves every gradient entry by about the lr
+    # whatever its size, so a rounding that flips a near-zero entry's sign moves the
+    # trajectory, in the one process as in the bands (PERF.md §6).
+    (_, again), _, _ = counted(lambda: train_classifier(corpus, labels, device=device,
+                                                        **clf_kw[False]))
+    unfrozen_noise = par_trajectory("one process's unfrozen epoch run again",
+                                    again["train_loss"], one_clf[False][0][1]["train_loss"],
+                                    float("inf"))
+    one_clf_mem = workers.classifier_step_rank(None, None, clf_mem)
+    clf_f64 = dict(clf_mem, x=clf_mem["x"].astype(np.float64))
+    one_clf_f64 = workers.classifier_step_rank(None, None, clf_f64)
+    one_diff = counted(lambda: train_diffusion(dimgs, dlabels, device=device, **diff_kw))
+    one_diff_mem = workers.diffusion_step_rank(None, None, dict(diff_mem))
+    # Each step run again: the one process's own run-to-run distance of its gradients,
+    # printed beside the bands' (cuDNN's backward algorithms need not be deterministic).
+    again = {"clf": workers.classifier_step_rank(None, None, clf_mem),
+             "diffusion": workers.diffusion_step_rank(None, None, dict(diff_mem))}
+    one_s = time.perf_counter() - t0
+    if on_card:  # the ranks share the card: give back what this process's allocator holds
+        torch.cuda.empty_cache()
+
+    def eval_jobs(shape):
+        return [(workers.evaluate_rank, (model, c, images, artist, dict(eval_kw, quantize=q)),
+                 {"shape": shape, "record_k2": q and on_card})
+                for c, q in ((clf, False), (dclf, True))] + [
+            (workers.eval_logits_rank, (shape, model, clf, np.stack(images), crop), {})]
+
+    diff_job = lambda shape: (workers.diffusion_rank, (dimgs, dlabels, diff_kw),  # noqa: E731
+                              {"shape": shape})
+    dev = "cuda:0" if on_card else "cpu"
+    t0 = time.perf_counter()
+    two = launch(workers.run_jobs, 2, eval_jobs((1, 2)) + [
+        (workers.train_classifier_rank, (corpus, labels, clf_kw[f]),
+         {"shape": (1, 2)}) for f in (True, False)] + [
+        (workers.classifier_step_rank, ((1, 2), clf_mem), {}), diff_job((1, 2)),
+        (workers.diffusion_step_rank, ((1, 2), diff_mem), {}),
+        (workers.classifier_step_rank, ((1, 2), clf_f64), {})],
+        backend="gloo", device=dev, threads=None if on_card else 2, timeout_s=900)
+    two_s = time.perf_counter() - t0
+    emit("space_more_launch", ranks=2, one_process_s=one_s, launch_s=two_s)
+    t0 = time.perf_counter()
+    four = launch(workers.run_jobs, 4, eval_jobs((2, 2)) + [diff_job((2, 2))], backend="gloo",
+                  device=dev, threads=None if on_card else 1, timeout_s=900)
+    four_s = time.perf_counter() - t0
+    emit("space_more_launch", ranks=4, launch_s=four_s)
+
+    # (a) evaluation
+    report: dict = {"one_process_s": one_s, "two_rank_launch_s": two_s,
+                    "four_rank_launch_s": four_s, "clf_unfrozen_one_process_noise": unfrozen_noise}
+    k2_calls, k2_launches, k1_launches = [], {}, {}
+    for label, ranks, shape in (("1x2", two, (1, 2)), ("2x2", four, (2, 2))):
+        for j, name in enumerate(("f32", "int8")):
+            acc, stdout, _ = one_eval[name]
+            require((ranks[0][j]["acc"], ranks[0][j]["stdout"]) == (acc, stdout),
+                    f"space_more: eval {name} {label} Acc={ranks[0][j]['acc']} vs {acc}")
+            require(all(r[j]["acc"] == acc and r[j]["stdout"] == "" for r in ranks[1:]),
+                    f"space_more: eval {name} {label}: another rank printed or differs")
+            want_k2 = QCONV_TRANSFORMER + QCONV_RESNET if on_card and name == "int8" else 0
+            got = [r[j]["launches"] for r in ranks]
+            require(all(g == {"k1": 0, "k2": want_k2} for g in got),
+                    f"space_more: eval {name} {label} launches by rank {got}, not 0 K1 and "
+                    f"{want_k2} K2")
+            k1_launches[f"eval_{name}_space_{label}"] = got[0]["k1"]
+            if name == "int8":
+                k2_launches[f"eval_int8_space_{label}"] = got[0]["k2"]
+                for r in ranks:
+                    for (xn, wn, *rest), count in r[j].get("k2_calls", []):
+                        x = torch.from_numpy(xn).cuda().contiguous(
+                            memory_format=torch.channels_last)
+                        w = torch.from_numpy(wn).cuda().contiguous(
+                            memory_format=torch.channels_last)
+                        k2_calls += [(x, w, *rest)] * count
+            emit("space_more_run", run=f"eval_{name}_{label}", images=SPACE_MORE_EVAL,
+                 size=eval_size, ms_per_batch=ranks[0][j]["secs"] * 1e3,
+                 gloo_host_ms=ranks[0][j]["collective_ms"], card=smi)
+        logits = np.concatenate([ranks[i * shape[1]][2]["logits"] for i in range(shape[0])])
+        rel = float(np.abs(logits - one_logits).max() / np.abs(one_logits).max())
+        require(rel <= 1e-3 and np.array_equal(logits.argmax(-1), one_logits.argmax(-1)),
+                f"space_more: eval f32 {label} logits {rel} of the largest apart, argmax "
+                f"{logits.argmax(-1).tolist()} vs {one_logits.argmax(-1).tolist()}")
+        report[f"eval_f32_{label}_logits_rel"] = rel
+    t0 = time.perf_counter()
+    k2 = (check_qconv_shapes(k2_calls, "eval_int8_space", peaks, cold=False) if on_card
+          else {"shapes": 0, "launches": 0, "s32_max_abs_err": 0})
+    report["k2_check_s"] = time.perf_counter() - t0
+
+    # (b) artist-classifier training over (1, 2)
+    start = init_classifier(torch.Generator().manual_seed(2), num_classes=ARTIST_CLF_CLASSES)
+    for j, f in ((3, True), (4, False)):
+        name = "frozen" if f else "unfrozen"
+        runs = [r[j] for r in two]
+        (_, hist), secs, k = one_clf[f]
+        report[f"clf_{name}_rel"] = par_trajectory(
+            f"space (1, 2) train_classifier {name}", runs[0]["history"]["train_loss"],
+            hist["train_loss"], clf_rtol if f else float("inf"))
+        require(all(np.array_equal(v, runs[0]["params"][key]) for r in runs[1:]
+                    for key, v in r["params"].items()),
+                f"space_more: train_classifier {name}: the ranks' params differ")
+        frozen = [key for key in ("0.0.weight", "0.5.0.conv2.weight")
+                  if np.array_equal(runs[0]["params"][key], start.state_dict()[key].numpy())]
+        require(len(frozen) == (2 if f else 0),
+                f"space_more: train_classifier {name}: convs unchanged {frozen}")
+        got = [r["launches"] for r in runs] + [k]
+        require(all(g == {"k1": 0, "k2": 0} for g in got),
+                f"space_more: train_classifier {name} launches {got}")
+        k1_launches[f"train_classifier_space_{name}"] = got[0]["k1"]
+        emit("space_more_run", run=f"train_classifier_{name}_1x2", steps=clf_steps,
+             ms_per_step=runs[0]["secs"] * 1e3 / clf_steps,
+             one_process_ms_per_step=secs * 1e3 / clf_steps,
+             gloo_host_ms=runs[0]["collective_ms"], card=smi)
+    # The unfrozen step before any update: the loss within 1e-4 of the one process's, the
+    # BN statistics and, in f64, the gradients leaf by leaf.
+    report["clf_step_rel"] = par_trajectory("space (1, 2) 512² unfrozen classifier step",
+                                            two[0][5]["metrics"][:, 0],
+                                            one_clf_mem["metrics"][:, 0], 1e-4)
+    flat_stats = lambda r: {f"{k}.{i}": s[i] for k, s in r["stats"].items()  # noqa: E731
+                            for i in range(2)}
+    for key, get, rtol in (("grads", lambda r: r["grads"], float("inf")),
+                           ("stats", flat_stats, stats_rtol)):
+        report[f"clf_step_{key}_one_process_noise"] = held_leaves(
+            f"the one process's 512² classifier step {key} run again",
+            [get(again["clf"])], get(one_clf_mem), float("inf"), key == "grads")
+        report[f"clf_step_{key}"] = held_leaves(
+            f"space (1, 2) 512² classifier step {key}", [get(r[5]) for r in two],
+            get(one_clf_mem), rtol, key == "grads")
+        report[f"clf_step_f64_{key}"] = held_leaves(
+            f"space (1, 2) 512² f64 classifier step {key}", [get(r[8]) for r in two],
+            get(one_clf_f64), SPACE_MORE_F64_RTOL, key == "grads")
+
+    # (c) diffusion training over (1, 2) and (2, 2)
+    (_, _, one_losses), one_diff_s, k = one_diff
+    require(k == {"k1": 0, "k2": 0}, f"space_more: one-process train_diffusion launches {k}")
+    for label, ranks, j in (("1x2", two, 6), ("2x2", four, 3)):
+        runs = [r[j] for r in ranks]
+        report[f"diffusion_{label}_rel"] = par_trajectory(
+            f"space {label} train_diffusion", runs[0]["losses"], one_losses,
+            SPACE_MORE_DIFF_RTOL)
+        require(all(np.array_equal(r["losses"], runs[0]["losses"])
+                    and all(np.array_equal(v, runs[0]["params"][key])
+                            for key, v in r["params"].items()) for r in runs[1:]),
+                f"space_more: train_diffusion {label}: the ranks differ")
+        got = [r["launches"] for r in runs]
+        require(all(g == {"k1": 0, "k2": 0} for g in got),
+                f"space_more: train_diffusion {label} launches {got}")
+        k1_launches[f"diffusion_train_space_{label}"] = got[0]["k1"]
+        emit("space_more_run", run=f"train_diffusion_{label}", steps=diff_steps,
+             ms_per_step=runs[0]["secs"] * 1e3 / diff_steps,
+             one_process_ms_per_step=one_diff_s * 1e3 / diff_steps,
+             gloo_host_ms=runs[0]["collective_ms"], card=smi)
+    report["diffusion_step_rel"] = par_trajectory(
+        "space (1, 2) 256² diffusion step", [two[0][7]["loss"]], [one_diff_mem["loss"]], 1e-4)
+    report["diffusion_step_grads_one_process_noise"] = held_leaves(
+        "the one process's 256² UNet step gradients run again", [again["diffusion"]["grads"]],
+        one_diff_mem["grads"], float("inf"), True)
+    report["diffusion_step_grads"] = held_leaves(
+        "space (1, 2) 256² UNet step gradients", [r[7]["grads"] for r in two],
+        one_diff_mem["grads"], grad_rtol, True)
+    peak = {"classifier_512": {"one_process": one_clf_mem.get("peak_mem_gib"),
+                               "ranks_1x2": [r[5].get("peak_mem_gib") for r in two]},
+            "diffusion_256": {"one_process": one_diff_mem.get("peak_mem_gib"),
+                              "ranks_1x2": [r[7].get("peak_mem_gib") for r in two]}}
+    emit("space_more", **report, peak_mem_gib=peak, mem_batch=SPACE_MORE_MEM_BATCH,
+         k1_launches_rank0=k1_launches, k2_launches_rank0=k2_launches,
+         k2_shapes=k2["shapes"], k2_launches_checked=k2["launches"],
+         k2_s32_max_abs_err=k2["s32_max_abs_err"],
+         k2_sums={k: k2.get(k) for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                                         "cudnn_bf16_ms", "library_ms", "library_k2_ms",
+                                         "library_launches", "bf16_mismatches",
+                                         "dequant_max_rel_err")}, card=smi)
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2": k2}
+
+
+def held_leaves(name: str, ranks: list[dict], want: dict, rtol: float,
+                by_module: bool = False) -> dict:
+    """Holds the ranks' arrays (one dict of leaves a rank) bit-identical to one another and
+    rank 0's within ``rtol`` of each leaf's largest entry of ``want``, or with
+    ``by_module`` of the largest entry of its module's leaves (a parameter name's prefix:
+    a bias that feeds a GroupNorm of one channel a group has a gradient of rounding
+    alone); returns the largest share, its leaf, and the largest relative L2 distance of
+    a leaf."""
+    got = ranks[0]
+    require(got.keys() == want.keys(), f"space_more {name}: leaves {sorted(got)[:4]}... vs "
+                                       f"{sorted(want)[:4]}...")
+    require(all(np.array_equal(r[k], got[k]) for r in ranks[1:] for k in got),
+            f"space_more {name}: the ranks differ")
+    module = (lambda k: k.rsplit(".", 1)[0]) if by_module else (lambda k: k)  # noqa: E731
+    largest: dict = {}
+    for k, w in want.items():
+        largest[module(k)] = max(largest.get(module(k), 1e-30), float(np.abs(w).max()))
+    worst, leaf, l2 = 0.0, None, 0.0
+    for k, w in want.items():
+        w64, g64 = np.asarray(w, np.float64), np.asarray(got[k], np.float64)
+        rel = float(np.abs(g64 - w64).max()) / largest[module(k)]
+        if rel >= worst:
+            worst, leaf = rel, k
+        l2 = max(l2, float(np.linalg.norm(g64 - w64) / max(np.linalg.norm(w64), 1e-30)))
+    require(worst <= rtol, f"space_more {name}: leaf {leaf} {worst} of its largest apart "
+                           f"(bar {rtol})")
+    return {"max_rel": worst, "leaf": leaf, "max_l2_rel": l2}
 
 
 def classifier_lockstep(mesh, images: np.ndarray, labels: np.ndarray, batch: int,
@@ -4184,6 +4544,8 @@ def main(argv=None) -> int:
     launches.update(par["k1_launches"])
     space = phase_space_train(peaks, smi)
     launches.update(space["k1_launches"])
+    space_more = phase_space_more(peaks, smi)
+    launches.update(space_more["k1_launches"])
     rows = phase_kernel_rows(peaks, smi)
     diff = phase_diffusion(peaks, smi)
     launches.update(diff["k1_launches"])
@@ -4196,7 +4558,7 @@ def main(argv=None) -> int:
                     "cudnn_bf16_ms", "library_ms", "library_k2_ms", "library_k2_device_ms",
                     "library_launches", "library_failed_launches")}
     paths = {**int8["shapes"], **int8_train["shapes"], "stylize_spatial_int8_band": par["band"],
-             "train_space_band": space["k2"]}
+             "train_space_band": space["k2"], "eval_int8_space_band": space_more["k2"]}
     k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
     # K2's data gradients: the sums over one step's dgrad launches of each int8 training net.
@@ -4217,6 +4579,8 @@ def main(argv=None) -> int:
         "bound_ms": gram["bound_ms"],
         "bound_by": "operations" if gram["ops_ms"] >= gram["bytes_ms"] else "bytes",
         "library_ms": gram["library_ms"],
+        "device_ms_sources": DEVICE_MS_SOURCES.get("gram_tile_kernel"),
+        "library_device_ms_sources": DEVICE_MS_SOURCES.get(""),
         "launches_are": "launches: the Gatys main path; launches_by_path: each path's own "
                         "count, its counter zeroed just before it; eval, train_classifier, "
                         "stylize_int8, eval_int8, int8_train_classifier, "
@@ -4235,6 +4599,9 @@ def main(argv=None) -> int:
                         "4 a step on the rank's band of each tap), train_space_2x2 rank 0 "
                         "of 4 ranks with mesh (2, 2) (the same counts), train_space_bf16 "
                         "two bf16 epochs over (1, 2) (4 + 4 a step); "
+                        "eval_<f32|int8>_space_<1x2|2x2>, train_classifier_space_<frozen|"
+                        "unfrozen> and diffusion_train_space_<1x2|2x2> rank 0 of phase "
+                        "space_more's runs over a ('data', 'space') mesh compute no Gram: 0; "
                         "train_space_<run> rank 0 of the (1, 2) runs of 'classifier' mode "
                         "and the int8 options (one f32 epoch each at 224x224, global B=4): "
                         "clf, clf_bf16 and qclf compute no Gram (0), qloss and qat_qgram 2 a "
@@ -4252,7 +4619,11 @@ def main(argv=None) -> int:
                      f"({TRAIN_SIZE}x{TRAIN_SIZE}, N=2, f32), train_space_taps over a "
                      f"(1, 2) ('data', 'space') rank's band of each tap "
                      f"({TRAIN_BATCH}x{TRAIN_SIZE // 2}x{TRAIN_SIZE}x64 and on, f32), "
-                     "train_space_shapes each band shape those runs launched K1 at",
+                     "train_space_shapes each band shape those runs launched K1 at; "
+                     "device_ms_sources counts the kernel's device_ms readings by source "
+                     "(profiler, or events: CUDA events of the whole flushed call where no "
+                     "profiled window recorded a device event), library_device_ms_sources "
+                     "the library's",
         "train_taps": gram["train_taps"],
         "train_taps_bf16": gram["train_taps_bf16"],
         "int8_train_taps_bf16": gram["int8_train_taps_bf16"],
@@ -4268,7 +4639,7 @@ def main(argv=None) -> int:
         "launches": int8["launches"]["eval_int8"],
         "launches_by_path": {**int8["launches"], **int8_train["launches"],
                              **serve["launches"], **par["k2_launches"], **space["k2_launches"],
-                             **diff["k2_launches"]},
+                             **space_more["k2_launches"], **diff["k2_launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
         "dequant_max_rel_err": k2_err["dequant_max_rel_err"],
@@ -4283,6 +4654,7 @@ def main(argv=None) -> int:
         "library_k2_ms": k2["library_k2_ms"],
         "library_k2_device_ms": k2["library_k2_device_ms"],
         "cudnn_bf16_ms": k2["cudnn_bf16_ms"],
+        "device_ms_sources": DEVICE_MS_SOURCES.get("qconv_kernel"),
         "launches_are": "launches: the int8 eval main path (16 images, 4 batches of 68: 16 "
                         "TransformerNet and 52 ResNet-50 convs), counter zeroed just before; "
                         "stylize_int8 one 512x512 B=4 forward; eval_cli_int8 the --quantize "
@@ -4304,6 +4676,10 @@ def main(argv=None) -> int:
                         "on the rank's band: qloss 4 x 12 + 6 (the targets), qat_qgram 4 x "
                         "26, qat_all 4 x 32, qclf 4 x 104, clf and clf_bf16 0; the _2x2 ones "
                         "rank 0 of 4 with mesh (2, 2), the same counts; "
+                        "eval_int8_space_1x2 and eval_int8_space_2x2 rank 0 of the int8 eval "
+                        "over a ('data', 'space') mesh (1, 2) and (2, 2) on gloo ranks on one "
+                        "card: one 1024x1024 B=4 batch, each rank its data slice's band of "
+                        "rows, 68 (16 + 52); "
                         "the diffusion_* paths run the f32 ResNet-50 and no int8 conv: 0",
         "times_are": "sums over the 68 launches of one int8 eval batch (TransformerNet at "
                      "1024x1024, ResNet-50 at 256x256, B=4), each launch one kernel: a "
@@ -4320,9 +4696,13 @@ def main(argv=None) -> int:
                      "ranks' launches at the row-band shapes of a 512x512 image over 2 "
                      "ranks; train_space_band every rank's launches of phase space_train's "
                      "int8 runs over (1, 2) and (2, 2), forward and dgrad, at their band "
+                     "shapes, warm events only; eval_int8_space_band every rank's launches "
+                     "of phase space_more's int8 eval over (1, 2) and (2, 2) at their band "
                      "shapes, warm events only), dgrad the sums over the train_*_dgrad paths, kernel_rows the sums "
                      "of phase kernel_rows' paths (warm events only), and each qconv line "
-                     "its shape's plan",
+                     "its shape's plan; device_ms_sources counts K2's device_ms readings "
+                     "by source (profiler, or events: CUDA events of the whole flushed call "
+                     "where no profiled window recorded a device event)",
         "paths": paths,
         "dgrad": dgrad,
         "kernel_rows": rows["k2"],

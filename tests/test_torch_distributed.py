@@ -33,7 +33,7 @@ from artist_style_transfer_tpu_torch.parallel import (
 )
 from artist_style_transfer_tpu_torch.parallel.distributed import _cluster_detected
 from artist_style_transfer_tpu_torch.parallel.launch import free_port
-from artist_style_transfer_tpu_torch.parallel.mesh import data_parallel
+from artist_style_transfer_tpu_torch.parallel.mesh import check_mesh
 from tests.test_torch_data import one_torch_thread  # noqa: F401
 
 CLUSTER_VARS = ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS", "SLURM_NTASKS",
@@ -191,22 +191,23 @@ def test_mesh_collectives_and_make_global_over_four_ranks():
 
 
 def test_data_parallel_refuses_a_space_axis():
-    """Evaluation, stylization and the other trainers refuse a 'space' axis (ROADMAP
-    item 12d); the style-transfer trainer admits it, but not a shape its process group
-    cannot hold."""
+    """Every entry point takes a ('data', 'space') mesh through one check: a third axis
+    larger than 1 still raises ``NotImplementedError``, and a shape that its process
+    group cannot hold ``ValueError``."""
     import dataclasses
 
-    from artist_style_transfer_tpu_torch.parallel.mesh import train_mesh
-
     mesh = make_mesh((1,), device="cpu")
-    assert data_parallel(mesh) is mesh and data_parallel(None) is None
+    assert check_mesh(mesh) is mesh and check_mesh(None) is None
     wide = dataclasses.replace(mesh, axis_names=("data", "space"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        data_parallel(wide)
     with pytest.raises(ValueError, match="needs 2 ranks"):
-        train_mesh(wide)
+        check_mesh(wide)
+    third = dataclasses.replace(mesh, axis_names=("data", "space", "model"), shape=(1, 1, 2))
+    with pytest.raises(NotImplementedError, match="'data' and 'space' alone"):
+        check_mesh(third)
     one = make_mesh((1, 1), ("data", "space"), device="cpu")
-    assert train_mesh(one) is one and one.axis_mesh("space").size == 1
+    assert check_mesh(one) is one and one.axis_mesh("space").size == 1
+    flat = make_mesh((1, 1, 1), ("data", "space", "model"), device="cpu")
+    assert check_mesh(flat) is flat
 
 
 def _fails(mesh, which):

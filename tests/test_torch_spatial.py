@@ -146,9 +146,12 @@ def test_stylize_spatial_int8_matches_jax_and_single_device(spatial, shape):
 
 def _refusals(mesh, model, image):
     from artist_style_transfer_tpu_torch.infer.stylize import stylize_spatial
+    from artist_style_transfer_tpu_torch.parallel import workers
 
     out = []
-    for args in ((model, image[:7], mesh), (model, image, mesh)):
+    for args in ((model, image[:7], mesh), (model, image, mesh),
+                 (model, image[:7], workers.space_mesh(mesh, (2, 1))),
+                 (model, image, workers.space_mesh(mesh, (1, 2)))):
         try:
             stylize_spatial(*args, device="cpu")
             out.append(None)
@@ -158,12 +161,21 @@ def _refusals(mesh, model, image):
 
 
 def test_stylize_spatial_refusals(spatial):
-    """The ranks must divide H, as JAX's sharding needs; a 'space' mesh waits for 12d."""
+    """The ranks of the 'data' line must divide H, as JAX's sharding needs, on a
+    ('data', 'space') mesh too (its rows spread over 'data'; a 'space' line repeats
+    them); a mesh without the ranks its shape needs, or with a third axis, refuses."""
+    import dataclasses
+
     from artist_style_transfer_tpu_torch.infer.stylize import stylize_spatial
     from tests.test_torch_distributed import space_mesh
 
     img = spatial["images"][SHAPES[0]]
     got = launch(_refusals, 2, spatial["model"], img, backend="gloo", device="cpu")[0]
-    assert got == ["image height 7 does not divide over the 2-rank mesh", None]
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    msg = "image height 7 does not divide over the 2-rank 'data' line"
+    assert got == [msg, None, msg, None]
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         stylize_spatial(spatial["model"], img, space_mesh(), device="cpu")
+    third = dataclasses.replace(space_mesh(), axis_names=("data", "space", "model"),
+                                shape=(1, 1, 2))
+    with pytest.raises(NotImplementedError, match="'data' and 'space' alone"):
+        stylize_spatial(spatial["model"], img, third, device="cpu")

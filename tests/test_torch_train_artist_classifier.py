@@ -25,6 +25,7 @@ the port by ``classifier_state_dict_from_jax``. Tolerances:
 """
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -350,8 +351,14 @@ def test_train_classifier_defaults_and_refusals(tmp_path):
                                                   **one)
     np.testing.assert_allclose(hist_dp["train_loss"], hist["train_loss"], rtol=1e-3)
     assert hist_dp["train_acc"] == hist["train_acc"]
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    # A 'space' mesh needs the ranks its shape names (the banded runs are in
+    # tests/test_torch_space_classifier_train.py); a third axis still refuses.
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tclassifier.train_classifier(images, labels, mesh=space_mesh(), device="cpu")
+    third = dataclasses.replace(space_mesh(), axis_names=("data", "space", "model"),
+                                shape=(1, 1, 2))
+    with pytest.raises(NotImplementedError, match="'data' and 'space' alone"):
+        tclassifier.train_classifier(images, labels, mesh=third, device="cpu")
     with pytest.raises(ValueError, match="smaller than batch_size"):
         tclassifier.train_classifier(images, labels, batch_size=64, device="cpu")
     if not torch.cuda.is_available():
