@@ -1,9 +1,10 @@
 """ctypes binding of the native JPEG decode + resample thread pool (the port's own
 copy of the JAX ``data/native_loader.py``).
 
-``native/dataloader.cpp`` (C++ over libjpeg, a std::thread pool) is compiled at
-first use with the flags of ``native/Makefile`` into ``build/`` at the root of the
-checkout, which git ignores; ``native/`` is only read. The library's name carries
+``csrc/dataloader.cpp`` (C++ over libjpeg, a std::thread pool; a byte-for-byte copy
+of the JAX package's decode pool, so both decode alike) is compiled at first use
+with the flags of the JAX package's ``native/Makefile``, copied below, into
+``build/`` at the root of the checkout, which git ignores. The library's name carries
 a hash of the source, the flags and the host (:func:`host_key`: the machine and
 its CPU's flags, since ``-march=native`` builds for this CPU), so a changed
 source builds anew, and a library that another host built, which travels with
@@ -31,8 +32,9 @@ import threading
 
 import numpy as np
 
-REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = REPO_ROOT / "native" / "dataloader.cpp"
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+REPO_ROOT = PACKAGE_DIR.parent
+SOURCE = PACKAGE_DIR / "csrc" / "dataloader.cpp"
 BUILD_DIR = REPO_ROOT / "build"
 # native/Makefile's CXX, CXXFLAGS and LDFLAGS.
 CXX = "g++"

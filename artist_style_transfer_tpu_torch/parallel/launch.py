@@ -6,9 +6,15 @@ threads), joins them over ``tcp://localhost:<free port>``, calls
 ``fn(mesh, *args)`` in each with a :class:`Mesh` over all of them, and returns
 their results in rank order. ``fn`` must be importable by name (a module-level
 function: a spawned child imports it anew), and so must its arguments and
-result, which cross as plain pickled bytes: each rank gets its own copy of every
+result, which cross as plain pickles: each rank gets its own copy of every
 tensor (torch's multiprocessing pickler would instead move CPU tensors into
-shared memory, and the ranks would update one model between them);
+shared memory, and the ranks would update one model between them). The pickles
+go through files in a temporary directory: a spawned child reads what its start
+sends only once it has imported its modules, so arguments sent with the start held
+each start until the child before had read them, and results put on the queue
+crossed at about 50 MB/s (``bench_launch.py`` on an H100's host: 1.2 GB of arguments
+took 25-27 s over 2 ranks and 50-55 s over 4 that way, 13-16 s through files; 1 GB of
+results from each of 2 ranks 38-43 s after the job, 2.2-2.3 s through files);
 :mod:`parallel.workers` holds the functions the tests and ``chip_smoke.py`` use. A rank that raises or dies fails the launch with its
 traceback, and the others are stopped; no rank outlives the call.
 
@@ -22,9 +28,12 @@ backend="gloo"``), which NCCL refuses as a duplicate GPU.
 from __future__ import annotations
 
 import datetime
+import os
 import pickle
 import queue as queue_mod
+import shutil
 import socket
+import tempfile
 import time
 import traceback
 
@@ -41,14 +50,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child(payload: bytes, rank: int, world: int, port: int, backend: str, device: str,
+def _child(workdir: str, rank: int, world: int, port: int, backend: str, device: str,
            threads: int | None, timeout_s: float, results) -> None:
     import torch.distributed as dist
 
     from artist_style_transfer_tpu_torch.parallel.mesh import make_mesh
 
     try:
-        fn, args = pickle.loads(payload)
+        with open(os.path.join(workdir, "args.pkl"), "rb") as fh:
+            fn, args = pickle.load(fh)
         if threads:
             torch.set_num_threads(threads)
         dev = torch.device(device)
@@ -61,7 +71,10 @@ def _child(payload: bytes, rank: int, world: int, port: int, backend: str, devic
             out = fn(make_mesh(device=dev), *args)
         finally:
             dist.destroy_process_group()
-        results.put((rank, True, pickle.dumps(out)))
+        path = os.path.join(workdir, f"result{rank}.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump(out, fh)
+        results.put((rank, True, path))
     except BaseException:  # reported to the parent, which fails the launch
         results.put((rank, False, traceback.format_exc()))
 
@@ -88,17 +101,19 @@ def launch(fn, nprocs: int, *args, backend: str = "nccl", device: str | None = N
     port = free_port()
     devices = [str(dev) if dev.index is not None or dev.type != "cuda" else f"cuda:{r}"
                for r in range(nprocs)]
-    payload = pickle.dumps((fn, args))
-    procs = [ctx.Process(target=_child, args=(payload, r, nprocs, port, backend, devices[r],
+    workdir = tempfile.mkdtemp(prefix="ast_launch_")
+    procs = [ctx.Process(target=_child, args=(workdir, r, nprocs, port, backend, devices[r],
                                               threads, timeout_s, results),
                          daemon=True)
              for r in range(nprocs)]
-    for p in procs:
-        p.start()
     out: dict[int, object] = {}
     failure = None
-    deadline = time.monotonic() + timeout_s
     try:
+        with open(os.path.join(workdir, "args.pkl"), "wb") as fh:
+            pickle.dump((fn, args), fh)
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
         while len(out) < nprocs and failure is None:
             try:
                 rank, ok, value = results.get(timeout=1.0)
@@ -118,17 +133,21 @@ def launch(fn, nprocs: int, *args, backend: str = "nccl", device: str | None = N
                 else:
                     continue
             if ok:
-                out[rank] = pickle.loads(value)
+                with open(value, "rb") as fh:
+                    out[rank] = pickle.load(fh)
             else:
                 failure = f"rank {rank} failed:\n{value}"
     finally:
         for p in procs:
+            if p.pid is None:  # never started
+                continue
             if failure is not None and p.is_alive():
                 p.terminate()
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join()
+        shutil.rmtree(workdir, ignore_errors=True)
     if failure is not None:
         raise RuntimeError(failure)
     return [out[r] for r in range(nprocs)]

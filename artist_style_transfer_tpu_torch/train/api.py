@@ -189,10 +189,11 @@ def train(
     style, total] sums (train_cnn.py:281, :376-378). ``device=None`` means
     CUDA and raises without it; the CPU runs only when asked for.
     The corpus is up to ``content_data_size`` images of ``content_dir``, shuffled
-    by ``seed`` and resized to ``train_size`` square, or the first
-    ``content_data_size`` of ``content_images`` (the reference draws that many,
-    train_cnn.py:168). The paintings of ``artist`` come from ``archive_dir``
-    (or the caches in ``cache_dir``), rescaled to ``train_size``. ``metrics.jsonl``
+    by ``seed`` and resized to ``train_size`` square (the reference draws that
+    many, train_cnn.py:168), or every image of ``content_images``, whatever
+    ``content_data_size`` says (as JAX's ``train()``). The paintings of
+    ``artist`` come from ``archive_dir`` (or the caches in ``cache_dir``),
+    rescaled to ``train_size``. ``metrics.jsonl``
     records where the data came from and which decoder read it (event ``data``),
     and for a streamed epoch the host seconds the loop waited on the stream.
     'classifier' mode takes the frozen classifier from ``classifier`` or, when
@@ -265,8 +266,7 @@ def train(
                                                  stats=data_log["content"])
         else:
             data_log["content"] = {"source": "hook"}
-        content_data = torch.as_tensor(
-            np.asarray(content_images[:content_data_size], np.float32), device=dev)
+        content_data = torch.as_tensor(np.asarray(content_images, np.float32), device=dev)
         n_content = content_data.shape[0]
 
     if wordy:

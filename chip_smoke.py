@@ -10,8 +10,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
                                       # an int8 stylize batch, an int8 eval batch,
                                       # 4 steps of each int8 training run, and a round
                                       # of f32 and of int8 serve traffic
+    python3 chip_smoke.py --phases space_train diffusion
+                                      # header, build and these phases only: a probe
+                                      # (the timing line, no kernels line, and a
+                                      # last line that names the probe)
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each (15-17 do their work in this process first, then share
+one launch of gloo ranks a world size, then check); any failure raises and exits
+non-zero. The whole run took 545 s on an H100 80GB HBM3 at 700 W (805 s when each of
+those phases launched its ranks apart and the launcher sent its pickles down pipes); it
+must finish inside 1200 s, and machines differ by up to 1.5x in host-bound time:
 
 0. header: torch/CUDA/Triton versions, the card (``nvidia-smi`` name and power
    limit), and both TF32 flags, which parity mode keeps False;
@@ -161,7 +169,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``evaluate_with_classifier(mesh=)`` f32 and int8 on 4 seeded 1024x1024 images (the
     same ``Acc=`` and ``Pred=`` lines), ``stylize_spatial`` and ``stylize_spatial_int8`` of
     a seeded 512x512 image (> 45 dB against ``stylize`` / ``stylize_int8``). Part 2, two
-    ranks on cuda:0 over gloo (NCCL refuses two ranks on one card), one launch: the same
+    ranks on cuda:0 over gloo (NCCL refuses two ranks on one card), in the launch of 2
+    ranks that phases 15-17 share (their jobs one after another): the same
     'cycle' run with a global B=4 (losses within rtol 1e-4 of the single process, the
     ranks' params bit-identical, K1 20 a rank), ``stylize_spatial`` (> 45 dB),
     ``stylize_spatial_int8`` (within 1.5, mean under 0.2, of ``stylize_int8``; 16 K2
@@ -191,9 +200,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     each of 'classifier' f32 (within rtol 1e-4 of the one-process ``train()``) and bf16
     (finite), 'cycle' with ``quantize_loss=True``, with ``qat=True, quantize_gram=True``
     (the int8 Gram on the real VGG16's taps) and with ``qat="all"``, and 'classifier'
-    through ``quantize_classifier`` with ``quantize_loss=True`` (the int8 runs within
-    rtol 1e-2 of one process), and one 'classifier' f32 step at 1024x1024, B=1 (within
-    rtol 1e-4; each rank's peak memory beside the one process's); 4 gloo ranks with
+    through ``quantize_classifier`` with ``quantize_loss=True`` (on 8 images: 2 steps;
+    the int8 runs within rtol 1e-2 of one process), and one 'classifier' f32 step at
+    1024x1024, B=1 (within rtol 1e-4; each rank's peak memory beside the one
+    process's); 4 gloo ranks with
     mesh (2, 2): the ``qat``/``quantize_gram`` and the int8 'classifier' runs; every
     run's ranks bit-identical, params, losses and dynamic int8 scales; K1 and K2
     launches a rank counted (K2 12 a step + 6 for ``quantize_loss``, 26, 32 and 104;
@@ -221,17 +231,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     warm times, bounds and the library yardsticks;
 19. diffusion: the class-conditional UNet at the diffusion CLI's defaults (64x64, base
     64, 19 classes, T = 1000, B = 32, 15,118,659 parameters): ``diff_model_apply`` with
-    every weight redrawn (within 1e-4 of max of the port's CPU) and guided DDIM-50 from
+    every weight redrawn (within 1e-4 of max of the port's CPU) and guided DDIM-20 from
     one x_T (> 45 dB against the CPU); ``train_diffusion`` for 2 epochs on 128 seeded
     images (finite, falling; warm ms/step, the step's FLOPs and bound, peak memory); ms
     per model evaluation of DDPM, DDIM-50 and DPM++-20 at B=16, with and without
     guidance; the diffusion CLI's ``train``, ``sample`` (guided DDIM, DPM++) and ``eval``
-    (16 samples) on a seeded workspace; then the CFID quality curve at the config of
-    ``tests/goldens/diffusion_cfid_curve.json`` (32x32, 2 classes, 256 real and 128
+    (16 samples), at T = 250, on a seeded workspace; then the CFID quality curve at the
+    config of ``tests/goldens/diffusion_cfid_curve.json`` (32x32, 2 classes, 256 real and 128
     generated images, 80 epochs, base 32, cosine) for its 12 sampler configurations,
     with the orderings of ``tests/test_diffusion.py`` held at 3 decimals; K1 and K2
     0 launches on every one of these paths;
-20. the kernels line; the card line; then ``{"ok": true, ...}`` last.
+20. timing: each phase's seconds on the host clock (phases 15-17 their work in this
+    process, phase 16's 'classifier' and int8 runs under ``space_train_more`` and its
+    K1 checks under ``space_train_k1``; ``ranks_2`` and ``ranks_4`` the one launch of 2
+    and of 4 gloo ranks on cuda:0 that runs their rank jobs: one start-up and warm-up a
+    world size) and the total; then the kernels line; the card line; then ``{"ok": true, ...}`` last.
 
 Imports neither JAX nor the JAX package, nor PIL; OpenCV only inside the
 phases that write or read images (``eval``'s CLI step, ``data``,
@@ -252,6 +266,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Generator
 
 import numpy as np
 import torch
@@ -343,7 +358,7 @@ SERVE_CLIENTS = 8
 SERVE_MAX_BATCH = 8
 SERVE_MAX_WAIT_MS = 3.0
 SERVE_CLASSIFY = 8
-SERVE_ROUNDS = 3  # timed rounds of each traffic mix, after a warm-up round: their spread
+SERVE_ROUNDS = 2  # timed rounds of each traffic mix, after a warm-up round: their range
 CLASSIFY_HW = (300, 280)
 CLASSIFY_SMALL_HW = (200, 180)
 # The parallel phase: a world of one over NCCL in this process, then 2 ranks on cuda:0
@@ -371,6 +386,10 @@ SPACE_INT8_RTOL = 1e-2  # the banded int8 runs' per-step losses against one proc
 # its targets' (the int8 VGG16's forward of the 8 paintings): phase int8_train's counts.
 SPACE_K2_STEP = {"qloss": 2 * QCONV_VGG_DEEP, "qat_qgram": 2 * QCONV_QAT["trunk"],
                  "qat_all": 2 * QCONV_QAT["all"], "qclf": 2 * QCONV_RESNET}
+# The int8 'classifier' run over the axis takes the first 8 content images: 2 steps, so
+# that its second loss holds the first step's backward against one process. Its banded
+# step waits on 208 scale all-reduces over gloo (4.6 s a step on (1, 2)).
+SPACE_QCLF_CONTENT = 8
 # Phase space_more: evaluation, artist-classifier and diffusion training over a ('data',
 # 'space') mesh, each against its one process in the phase's own process.
 SPACE_MORE_EVAL = 4  # one eval batch of the eval phase's 1024² images, B=4, crop 256
@@ -398,13 +417,15 @@ DIFF_BATCH = 32
 DIFF_TRAIN_IMAGES = 128
 DIFF_EPOCHS = 2
 DIFF_WARM_STEPS = 10
-DIFF_CPU_IMAGES = 2  # the card-vs-CPU UNet and guided DDIM-50
+DIFF_CPU_IMAGES = 2  # the card-vs-CPU UNet and guided DDIM
+DIFF_CPU_DDIM_STEPS = 20  # the card-vs-CPU guided DDIM (the CPU's run: 6-13 s at 50)
 DIFF_SAMPLE_BATCH = 16  # ms per model evaluation of each sampler
 DIFF_DDIM_STEPS = 50
 DIFF_DPMPP_STEPS = 20
 DIFF_CLI_ARTISTS = (("Alfred Sisley", 24), ("Vincent van Gogh", 24))
 DIFF_CLI_BATCH = 16
 DIFF_CLI_SAMPLES = 16
+DIFF_CLI_T = 250  # the CLI's train, sample and eval: its DDPM eval runs T model evaluations
 # The CFID quality curve at the config of tests/goldens/diffusion_cfid_curve.json.
 CURVE_SIZE = 32
 CURVE_CLASSES = 2
@@ -2270,7 +2291,7 @@ def phase_train_artist_classifier(peaks: dict | None, smi: str, device: str = "c
     # The classifier CLI on phase data's seeded workspace, one epoch, in a subprocess run
     # from the workspace's root (the reference's relative data paths).
     root = os.path.join(tmp, "ws")
-    workspace(root)
+    workspace(root, n_content=1)  # the classifier CLI reads images/archive/ alone
     out_dir = os.path.join(tmp, "cli_models")
     cmd = [sys.executable, "-m", "artist_style_transfer_tpu_torch.train.classifier",
            "--num_epochs", "1", "--batch_size", str(ARTIST_CLF_CLI_BATCH),
@@ -2845,6 +2866,74 @@ def serve_cli(models_dir: str, clf_pth: str, device: str, body: bytes, direct: n
             "classify": answer, "sigint_exit_s": stop_s, "exit_code": code}
 
 
+def walled(mesh, fn, args: tuple, kwargs: dict) -> tuple:
+    """``fn(mesh, *args, **kwargs)`` in a rank, with the host clock's time at its start
+    and end (``time.time()``: one host, so comparable with the launching process's)."""
+    start = time.time()
+    out = fn(mesh, *args, **kwargs)
+    return out, start, time.time()
+
+
+def run_rank_phases(phases: dict, device: str = "cuda",
+                    seconds: dict[str, float] | None = None) -> dict:
+    """Run the rank jobs of several phases in one launch of gloo ranks a world size.
+
+    Each phase is a generator that does its work in this process, yields its rank jobs
+    by world size (``{2: [(fn, args, kwargs), ...], 4: [...]}``), takes back each rank's
+    results of its own jobs, in order (``{2: [rank 0's, rank 1's], 4: [...]}``), checks
+    them and returns. A launch pays process start-up, imports and each rank's first CUDA
+    work once (10-15 s before an empty job over 2 or 4 ranks on the card's host:
+    ``bench_launch.py``), so the jobs of every phase at one world size share it. Returns each phase's value by name, and adds
+    to ``seconds`` each phase's own seconds (its work in this process) and each launch's,
+    under ``ranks_<n>``. ``device="cpu"`` runs the ranks on the CPU."""
+    from artist_style_transfer_tpu_torch.parallel import launch, workers
+
+    on_card = device == "cuda"
+    seconds = {} if seconds is None else seconds
+    asks = {}
+    for name, gen in phases.items():
+        t0 = time.perf_counter()
+        asks[name] = next(gen)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    if on_card:  # the ranks share the card: give back what this process's allocator holds
+        torch.cuda.empty_cache()
+    got: dict[str, dict] = {name: {} for name in phases}
+    for n in sorted({n for ask in asks.values() for n in ask}):
+        jobs = [(walled, job, {}) for ask in asks.values() for job in ask.get(n, [])]
+        t0, start = time.perf_counter(), time.time()
+        timed = launch(workers.run_jobs, n, jobs, backend="gloo",
+                       device="cuda:0" if on_card else "cpu",
+                       threads=None if on_card else max(1, 4 // n), timeout_s=900)
+        seconds[f"ranks_{n}"] = time.perf_counter() - t0
+        ranks = [[out for out, _, _ in r] for r in timed]
+        # Rank 0's job by job: the host seconds of each (set-up, and the profiler's own
+        # work after a profiled job, included), the seconds before its first job
+        # (start-up, imports, the jobs' arguments) and after its last (results, teardown).
+        emit("rank_launch", ranks=n, jobs=len(jobs), seconds=seconds[f"ranks_{n}"],
+             before_first_job_s=timed[0][0][1] - start,
+             after_last_job_s=start + seconds[f"ranks_{n}"] - timed[0][-1][2],
+             rank0_job_wall_s=[round(b - a, 3) for _, a, b in timed[0]],
+             rank0_job_secs=[round(r.get("secs", 0.0), 3) if isinstance(r, dict) else None
+                             for r in ranks[0]],
+             phases={name: len(ask.get(n, [])) for name, ask in asks.items()})
+        at = 0
+        for name, ask in asks.items():
+            k = len(ask.get(n, []))
+            got[name][n] = [r[at:at + k] for r in ranks]
+            at += k
+    out = {}
+    for name, gen in phases.items():
+        t0 = time.perf_counter()
+        try:
+            gen.send(got[name])
+        except StopIteration as done:
+            out[name] = done.value
+        else:
+            raise RuntimeError(f"chip_smoke: phase {name} asked for a second launch")
+        seconds[name] += time.perf_counter() - t0
+    return out
+
+
 def par_trajectory(name: str, got: np.ndarray, want: np.ndarray, rtol: float) -> float:
     """The largest relative difference of two loss arrays, required under ``rtol``."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -2863,12 +2952,14 @@ def stat(runs, key: str) -> float:
 def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = TRAIN_SIZE,
                    spatial: int = PAR_SPATIAL, eval_size: int = EVAL_SIZE,
                    clf_size: int = ARTIST_CLF_SIZE, clf_n: int = ARTIST_CLF_IMAGES,
-                   clf_batch: int = ARTIST_CLF_BATCH, clf_rtol: float = PAR_CLF_RTOL) -> dict:
+                   clf_batch: int = ARTIST_CLF_BATCH,
+                   clf_rtol: float = PAR_CLF_RTOL) -> Generator[dict, dict, dict]:
     """Data-parallel training and evaluation and row-sharded stylization at full width:
     part 1 a world of one over NCCL in this process through the normal entry points,
-    against their mesh-less runs; part 2 two ranks on cuda:0 over gloo, one launch, against
-    part 1's single-process runs; then K2 against its plain version at every band shape
-    part 2's ranks launched it at. Returns the kernels line's launches and the band
+    against their mesh-less runs; part 2 two ranks on cuda:0 over gloo, against part 1's
+    single-process runs; then K2 against its plain version at every band shape part 2's
+    ranks launched it at. A generator for :func:`run_rank_phases`, which runs part 2's
+    jobs in its launch of 2 ranks; returns the kernels line's launches and the band
     shapes' K2 sums. ``device="cpu"`` (with small sizes) rehearses it on the CPU, both
     parts over gloo and without the K2 checks; ``clf_rtol`` is the classifier's loss
     bar (at 32², B=8 on the CPU the world of one reads 5.0e-3: its last stage
@@ -2888,7 +2979,7 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
     from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
     from artist_style_transfer_tpu_torch.ops.cuda import qconv_kernel
     from artist_style_transfer_tpu_torch.ops.qconv import conv_i8, quant_i8
-    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.parallel import make_mesh, workers
     from artist_style_transfer_tpu_torch.parallel.launch import free_port
     from artist_style_transfer_tpu_torch.train import train
     from artist_style_transfer_tpu_torch.train.classifier import train_classifier
@@ -3004,7 +3095,7 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
     part1_s = time.perf_counter() - t0
     runs1 = [v for v in one.values() if isinstance(v, dict)]
 
-    # Part 2: two ranks on cuda:0 over gloo, one launch.
+    # Part 2: two ranks on cuda:0 over gloo, in the joint launch.
     jobs = [(workers.train_rank, (train_kw,), {"profile": True}),
             (workers.stylize_rows_rank, (model, image, False), {"profile": True}),
             (workers.stylize_rows_rank, (qmodel, image, False),
@@ -3014,11 +3105,8 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
              {"profile": True}),
             (workers.train_classifier_rank, (corpus, labels, clf_kw), {"profile": True}),
             (workers.train_rank, (int8_kw,), {"profile": True, "record_scales": True})]
-    t0 = time.perf_counter()
-    ranks = launch(workers.run_jobs, PAR_RANKS, jobs, backend="gloo",
-                   device="cuda:0" if on_card else "cpu", threads=None if on_card else 2,
-                   timeout_s=900)
-    part2_s = time.perf_counter() - t0
+    ranks = (yield {PAR_RANKS: jobs})[PAR_RANKS]
+    part2_s = sum(r.get("secs", 0.0) for r in ranks[0])
     train_r, f32_r, i8_r, conv_r, eval_r, clf_r, tq8_r = ranks[0]
     for other in ranks[1:]:
         for i, name in ((0, "DP 'cycle'"), (5, "train_classifier"), (6, "DP int8")):
@@ -3088,7 +3176,7 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
             else {"shapes": 0, "launches": 0, "s32_max_abs_err": 0})
     runs2 = [r for r in ranks[0] if "secs" in r]
     emit("parallel", ranks=PAR_RANKS, backends={"part1": backend1, "part2": "gloo"},
-         part1_wall_s=part1_s, part2_wall_s=part2_s,
+         part1_wall_s=part1_s, part2_rank0_jobs_s=part2_s,
          part1_device_ms=stat(runs1, "device_ms"), part2_rank0_device_ms=stat(runs2, "device_ms"),
          part1_nccl_host_ms=stat(runs1, "collective_ms"),
          part1_nccl_device_ms=stat(runs1, "collective_device_ms"),
@@ -3158,36 +3246,33 @@ def check_k1_shape(shape: tuple, dtype: str, peaks: dict) -> dict:
 
 def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
                       size: int = TRAIN_SIZE, mem_size: int = SPACE_MEM_SIZE,
-                      wide_epochs: int = SPACE_EPOCHS) -> dict:
+                      wide_epochs: int = SPACE_EPOCHS) -> Generator[dict, dict, dict]:
     """Training over a ('data', 'space') mesh at full width ('cycle', the TransformerNet
     and VGG16 to relu4_3, global B=4, 16 seeded images, 8 paintings), each image's rows
     over the 'space' ranks. In this process: the one-process ``train()`` and a
     one-process step at 1024², B=1 (its peak memory), then a world of one over NCCL with
     mesh (1, 1) (the banded code with no exchange). Then 2 gloo ranks on cuda:0 (NCCL
-    refuses two ranks on one card), one launch: a (1, 2) epoch in f32 (per-step losses
-    within rtol 1e-4 of the one process, the ranks' params bit-identical), two bf16
-    epochs (finite, falling), a streamed epoch through ``content_stream=`` (within rtol
-    1e-3 of the resident one) and the 1024² step (each rank's peak memory); then 4 gloo
-    ranks with mesh (2, 2), one launch: the f32 epoch again. Then 'classifier' mode and
-    the int8 options over the axis (:func:`space_train_more`). K1's launches a rank are
-    counted, and K1 is held against its plain version at every band shape the ranks
-    launched it at. ``device="cpu"`` (with small sizes) rehearses it on the CPU over
-    gloo, without K1 and K2."""
+    refuses two ranks on one card): a (1, 2) epoch in f32 (per-step losses within rtol
+    1e-4 of the one process, the ranks' params bit-identical), two bf16 epochs (finite,
+    falling), a streamed epoch through ``content_stream=`` (within rtol 1e-3 of the
+    resident one) and the 1024² step (each rank's peak memory); and 4 gloo ranks with
+    mesh (2, 2): the f32 epoch again. 'classifier' mode and the int8 options over the
+    axis are :func:`space_train_more`. A generator for :func:`run_rank_phases`, whose
+    launches of 2 and 4 ranks run the rank jobs. K1's launches a rank are counted, and
+    the band shapes the ranks launched it at returned (:func:`space_k1_rows` holds K1
+    against its plain version at each). ``device="cpu"`` (with small sizes) rehearses
+    it on the CPU over gloo, without K1 and K2."""
     import torch.distributed as dist
 
     from artist_style_transfer_tpu_torch.models.transformer import init_transformer
-    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
-    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.parallel import make_mesh, workers
     from artist_style_transfer_tpu_torch.parallel.launch import free_port
     from artist_style_transfer_tpu_torch.train import train
 
     on_card = device == "cuda"
-    content, paintings = train_data(size)
+    kw = space_train_kw(size, wide_epochs)
+    content, vgg = kw["content_images"], kw["vgg"]
     steps = TRAIN_CONTENT // TRAIN_BATCH
-    vgg = init_vgg16(torch.Generator().manual_seed(0))
-    kw = dict(style_method="cycle", artist="A", num_epochs=wide_epochs,
-              batch_size=TRAIN_BATCH, content_images=content, paintings=paintings, vgg=vgg,
-              save_every=0, wordy=False, log_every_batches=1)
     rng = np.random.default_rng(12)
     mem_setup = dict(model=init_transformer(torch.Generator().manual_seed(0)), vgg=vgg,
                      content=rng.uniform(0, 255, (1, mem_size, mem_size, 3)).astype(np.float32),
@@ -3221,7 +3306,7 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
         solo_rel = par_trajectory(f"space (1, 1) world of one over {backend}",
                                   step_records(run_dir("solo")), one_steps, 1e-4)
 
-        # Two gloo ranks on one card: (1, 2).
+        # Two gloo ranks on one card: (1, 2); four: (2, 2).
         stream_kw = {k: v for k, v in kw.items() if k != "content_images"}
         stream_kw.update(content_stream=workers.ArrayStream(content, TRAIN_BATCH, 2),
                          content_data_size=TRAIN_CONTENT, train_size=size,
@@ -3233,25 +3318,15 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
                  {"shape": (1, 2), "record_k1": True}),
                 (workers.train_rank, (stream_kw,), {"shape": (1, 2)}),
                 (workers.space_step_rank, ((1, 2), mem_setup), {})]
-        t0 = time.perf_counter()
-        two = launch(workers.run_jobs, 2, jobs, backend="gloo",
-                     device="cuda:0" if on_card else "cpu", threads=None if on_card else 2,
-                     timeout_s=900)
-        two_s = time.perf_counter() - t0
-        # Four gloo ranks on one card: (2, 2).
-        t0 = time.perf_counter()
-        four = launch(workers.run_jobs, 4, [
-            (workers.train_rank, (dict(kw, model_dir=run_dir("s22")),),
-             {"shape": (2, 2), "profile": True, "record_k1": True})],
-            backend="gloo", device="cuda:0" if on_card else "cpu",
-            threads=None if on_card else 1, timeout_s=900)
-        four_s = time.perf_counter() - t0
+        jobs4 = [(workers.train_rank, (dict(kw, model_dir=run_dir("s22")),),
+                  {"shape": (2, 2), "profile": True, "record_k1": True})]
+        ranks = yield {2: jobs, 4: jobs4}
+        two, four = ranks[2], ranks[4]
         s12, s22 = step_records(run_dir("s12")), step_records(run_dir("s22"))
         stream_steps = step_records(run_dir("stream"))
         epoch_secs = {name: [e["secs"] for e in read_jsonl(os.path.join(
             run_dir(name), "A", "cycle", "metrics.jsonl")) if e["event"] == "epoch"]
             for name in ("one", "solo", "s12", "s22", "stream")}
-        more = space_train_more(kw, run_dir, steps, peaks, smi, device, mem_size)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3287,76 +3362,95 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
                     shapes[(tuple(shape), dtype)] = shapes.get((tuple(shape), dtype), 0) + count
     require(not on_card or len(shapes) == 12,
             f"space_train: K1 ran at {len(shapes)} band shapes, not 4 taps x 3 runs")
-    # The int8 runs' band shapes too, where the runs above did not launch K1 at them.
-    new_k1 = [k for k in more["k1_shapes"] if k not in shapes]
-    for k, n in more["k1_shapes"].items():
-        shapes[k] = shapes.get(k, 0) + n
-    k1_rows = {}
-    if on_card:
-        for (shape, dtype), count in sorted(shapes.items()):
-            row = check_k1_shape(shape, dtype, peaks)
-            emit("space_train_k1", shape=list(shape), dtype=dtype, launches=count, **row,
-                 bound_by="operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
-                 card=smi)
-            k1_rows[f"{'x'.join(map(str, shape))}_{dtype}"] = dict(row, launches=count)
-    # The band taps of one (1, 2) f32 step (rank 0's rows of the whole batch): K1's row.
-    band = [f"{TRAIN_BATCH}x{size // (2 * d)}x{size // d}x{c}_float32" for _, d, c in TAPS]
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
-    step_taps = ({k: sum(k1_rows[b][k] for b in band) for k in keys}
-                 if on_card and all(b in k1_rows for b in band) else {})
-    require(not on_card or step_taps, f"space_train: K1 missed a (1, 2) band tap: {band}")
     mem = {"one_process": mem_one.get("peak_mem_gib"),
            "ranks_1x2": [r[3].get("peak_mem_gib") for r in two]}
     timing = {name: {k: r.get(k) for k in ("secs", "device_ms", "collective_ms")}
               for name, r in (("s12_rank0", two[0][0]), ("s22_rank0", four[0][0]))}
     emit("space_train", size=size, batch=TRAIN_BATCH, steps=steps * wide_epochs,
-         one_process_s=one_s, solo_s=solo_s, two_rank_launch_s=two_s,
-         four_rank_launch_s=four_s, epoch_secs=epoch_secs, solo_rel=solo_rel, **rels,
+         one_process_s=one_s, solo_s=solo_s, epoch_secs=epoch_secs, solo_rel=solo_rel, **rels,
          bf16_epoch_totals=bf16[:, 2].tolist(), k1_launches_rank0={
              "s12": two[0][0]["launches"]["k1"], "s22": four[0][0]["launches"]["k1"],
              "s12_bf16": two[0][1]["launches"]["k1"]},
-         k1_band_shapes=len(shapes), k1_new_band_shapes=len(new_k1), peak_mem_gib=mem,
-         mem_size=mem_size, timing=timing,
-         step_taps_1x2=step_taps, card=smi)
+         k1_band_shapes=len(shapes), peak_mem_gib=mem, mem_size=mem_size, timing=timing,
+         card=smi)
     return {"k1_launches": {"train_space": two[0][0]["launches"]["k1"],
                             "train_space_2x2": four[0][0]["launches"]["k1"],
-                            "train_space_bf16": two[0][1]["launches"]["k1"],
-                            **more["k1_launches"]},
-            "k2_launches": more["k2_launches"], "k2": more["k2"],
-            "step_taps": step_taps, "k1_rows": k1_rows}
+                            "train_space_bf16": two[0][1]["launches"]["k1"]},
+            "k1_shapes": shapes}
 
 
-def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str,
-                     device: str, mem_size: int) -> dict:
+def space_train_kw(size: int = TRAIN_SIZE, epochs: int = SPACE_EPOCHS) -> dict:
+    """``train()``'s arguments for phase space_train's 'cycle' run: global B=4, 16
+    seeded images, 8 paintings, the VGG16 from seed 0."""
+    from artist_style_transfer_tpu_torch.models.vgg import init_vgg16
+
+    content, paintings = train_data(size)
+    return dict(style_method="cycle", artist="A", num_epochs=epochs, batch_size=TRAIN_BATCH,
+                content_images=content, paintings=paintings,
+                vgg=init_vgg16(torch.Generator().manual_seed(0)), save_every=0, wordy=False,
+                log_every_batches=1)
+
+
+def space_k1_rows(shape_counts: list[dict], peaks: dict | None, smi: str,
+                  size: int = TRAIN_SIZE) -> dict:
+    """K1 against its plain version at every band shape that phase space_train's runs
+    and :func:`space_train_more`'s launched it at (``shape_counts``: each one's
+    launches by shape and dtype), each shape once, with the launches of all; and K1's
+    row of one (1, 2) f32 step: the sums over rank 0's band of each tap."""
+    shapes: dict[tuple, int] = {}
+    for counts in shape_counts:
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + n
+    k1_rows = {}
+    for (shape, dtype), count in sorted(shapes.items()):
+        row = check_k1_shape(shape, dtype, peaks)
+        emit("space_train_k1", shape=list(shape), dtype=dtype, launches=count, **row,
+             bound_by="operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes", card=smi)
+        k1_rows[f"{'x'.join(map(str, shape))}_{dtype}"] = dict(row, launches=count)
+    band = [f"{TRAIN_BATCH}x{size // (2 * d)}x{size // d}x{c}_float32" for _, d, c in TAPS]
+    require(all(b in k1_rows for b in band), f"space_train: K1 missed a (1, 2) band tap: {band}")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    step_taps = {k: sum(k1_rows[b][k] for b in band) for k in keys}
+    emit("space_train_k1_rows", band_shapes=len(shapes), step_taps_1x2=step_taps, card=smi)
+    return {"k1_rows": k1_rows, "step_taps": step_taps}
+
+
+def space_train_more(peaks: dict | None, smi: str, device: str = "cuda",
+                     size: int = TRAIN_SIZE,
+                     mem_size: int = SPACE_MEM_SIZE) -> Generator[dict, dict, dict]:
     """Phase space_train's runs of 'classifier' mode and the int8 options over the
     'space' axis, at full width (the TransformerNet, the VGG16 to relu4_3, the ResNet-50
-    with 19 classes; ``kw`` the phase's 'cycle' run): one launch of 2 gloo ranks on
-    cuda:0 with mesh (1, 2), one epoch each of (a) 'classifier' f32, (b) 'classifier'
-    bf16, (c) 'cycle' ``quantize_loss=True``, (d) 'cycle' ``qat=True,
-    quantize_gram=True`` (the int8 Gram on the real VGG16's taps), (e) 'cycle'
-    ``qat="all"``, (f) 'classifier' through ``quantize_classifier`` with
-    ``quantize_loss=True``, and (g) one 'classifier' f32 step at 1024², B=1 (each rank's
-    peak memory); then one launch of 4 gloo ranks with mesh (2, 2), (d) and (f). Each run
-    against the one-process ``train()`` in this process: f32 per-step losses within
-    rtol 1e-4, the int8 runs' within ``SPACE_INT8_RTOL``, bf16 finite; the ranks'
-    params, losses and every dynamic int8 scale bit-identical; K1's and K2's launches a
-    rank counted; K2 held against its plain version at every shape the ranks launched
-    it at (the band shapes, forward and dgrad); returns K1's band shapes, which the
-    phase checks where its earlier runs did not launch them."""
+    with 19 classes; the phase's 'cycle' run, :func:`space_train_kw`): 2 gloo ranks on
+    cuda:0 with mesh (1, 2), one epoch each of (a) 'classifier' f32, (b) 'classifier' bf16, (c) 'cycle'
+    ``quantize_loss=True``, (d) 'cycle' ``qat=True, quantize_gram=True`` (the int8 Gram
+    on the real VGG16's taps), (e) 'cycle' ``qat="all"``, (f) 'classifier' through
+    ``quantize_classifier`` with ``quantize_loss=True`` (on ``SPACE_QCLF_CONTENT``
+    images), and (g) one 'classifier' f32 step at 1024², B=1 (each rank's peak memory);
+    then 4 gloo ranks with mesh (2, 2), (d) and (f). A generator: it yields its rank jobs
+    by world size and takes their results back (:func:`run_rank_phases` runs it beside
+    phase space_train). Each run against the one-process ``train()`` in this process:
+    f32 per-step losses within rtol 1e-4, the int8 runs' within ``SPACE_INT8_RTOL``,
+    bf16 finite; the ranks' params, losses and every dynamic int8 scale bit-identical;
+    K1's and K2's launches a rank counted; K2 held against its plain version at every
+    shape the ranks launched it at (the band shapes, forward and dgrad); returns K1's
+    band shapes for :func:`space_k1_rows`."""
     from artist_style_transfer_tpu_torch.models.resnet import init_classifier
     from artist_style_transfer_tpu_torch.models.resnet_q import quantize_classifier
     from artist_style_transfer_tpu_torch.models.transformer import init_transformer
-    from artist_style_transfer_tpu_torch.parallel import launch, make_mesh, workers
+    from artist_style_transfer_tpu_torch.parallel import make_mesh, workers
     from artist_style_transfer_tpu_torch.train import train
 
     on_card = device == "cuda"
+    kw = space_train_kw(size)
     clf = init_classifier(torch.Generator().manual_seed(3))
     ckw = dict(kw, style_method="classifier", artist=CLF_ARTIST, classifier=clf)
     runs = {"clf": ckw, "clf_bf16": dict(ckw, compute_dtype="bfloat16"),
             "qloss": dict(kw, quantize_loss=True),
             "qat_qgram": dict(kw, qat=True, quantize_gram=True),
             "qat_all": dict(kw, qat="all"),
-            "qclf": dict(ckw, classifier=quantize_classifier(clf), quantize_loss=True)}
+            "qclf": dict(ckw, classifier=quantize_classifier(clf), quantize_loss=True,
+                         content_images=kw["content_images"][:SPACE_QCLF_CONTENT])}
+    steps = {name: -(-len(r["content_images"]) // r["batch_size"]) for name, r in runs.items()}
     mode_of = {name: r["style_method"] for name, r in runs.items()}
     artist_of = {name: r["artist"] for name, r in runs.items()}
     rng = np.random.default_rng(13)
@@ -3365,44 +3459,48 @@ def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str
                      content=rng.uniform(0, 255, (1, mem_size, mem_size, 3)).astype(np.float32),
                      batch_size=1, content_weight=17.0, style_weight=25.0, step=0)
 
-    def records(name: str, where: str) -> np.ndarray:
-        return step_records(run_dir(f"{where}_{name}"), mode_of[name], artist_of[name])
-
-    t0 = time.perf_counter()
-    for name, r in runs.items():
-        train(device=device, model_dir=run_dir(f"one_{name}"), **r)
-    one_s = time.perf_counter() - t0
-    mem_one = workers.space_step_rank(make_mesh(device=device), None, mem_setup)
+    four_names = ("qat_qgram", "qclf")
+    runs_at = (("one", runs), ("s12", runs), ("s22", four_names))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_space_more_")
+    run_dir = lambda name: os.path.join(tmp, name)  # noqa: E731
 
     def jobs(names, where, shape):
         return [(workers.train_rank, (dict(runs[n], model_dir=run_dir(f"{where}_{n}")),),
                  {"shape": shape, "record_k1": True, "record_k2": on_card,
                   "record_scales": n not in ("clf", "clf_bf16")}) for n in names]
 
-    dev = "cuda:0" if on_card else "cpu"
-    t0 = time.perf_counter()
-    two = launch(workers.run_jobs, 2, jobs(list(runs), "s12", (1, 2))
-                 + [(workers.space_step_rank, ((1, 2), mem_setup), {})], backend="gloo",
-                 device=dev, threads=None if on_card else 2, timeout_s=900)
-    two_s = time.perf_counter() - t0
-    four_names = ("qat_qgram", "qclf")
-    t0 = time.perf_counter()
-    four = launch(workers.run_jobs, 4, jobs(four_names, "s22", (2, 2)), backend="gloo",
-                  device=dev, threads=None if on_card else 1, timeout_s=900)
-    four_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        for name, r in runs.items():
+            train(device=device, model_dir=run_dir(f"one_{name}"), **r)
+        one_s = time.perf_counter() - t0
+        mem_one = workers.space_step_rank(make_mesh(device=device), None, mem_setup)
+        ranks = yield {2: jobs(list(runs), "s12", (1, 2))
+                       + [(workers.space_step_rank, ((1, 2), mem_setup), {})],
+                       4: jobs(four_names, "s22", (2, 2))}
+        records = {(where, name): step_records(run_dir(f"{where}_{name}"), mode_of[name],
+                                               artist_of[name])
+                   for where, names in runs_at for name in names}
+        epoch_secs = {f"{where}_{name}": [e["secs"] for e in read_jsonl(os.path.join(
+            run_dir(f"{where}_{name}"), artist_of[name], mode_of[name], "metrics.jsonl"))
+            if e["event"] == "epoch"] for where, names in runs_at for name in names}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    two, four = ranks[2], ranks[4]
 
     rels = {}
     for name in runs:
         rtol = (SPACE_INT8_RTOL if name.startswith("q")
                 else 1e-4 if name == "clf" else float("inf"))
-        rels[f"s12_{name}"] = par_trajectory(f"space (1, 2) {name}", records(name, "s12"),
-                                             records(name, "one"), rtol)
+        rels[f"s12_{name}"] = par_trajectory(f"space (1, 2) {name}", records["s12", name],
+                                             records["one", name], rtol)
     for name in four_names:
-        rels[f"s22_{name}"] = par_trajectory(f"space (2, 2) {name}", records(name, "s22"),
-                                             records(name, "one"), SPACE_INT8_RTOL)
+        rels[f"s22_{name}"] = par_trajectory(f"space (2, 2) {name}", records["s22", name],
+                                             records["one", name], SPACE_INT8_RTOL)
     rels["mem_step"] = par_trajectory("space (1, 2) 'classifier' 1024² step",
                                       two[0][-1]["losses"], mem_one["losses"], 1e-4)
-    k1_want = {"qloss": 4 + 2 * steps, "qat_qgram": 4 + 2 * steps, "qat_all": 4 + 4 * steps}
+    k1_want = {"qloss": 4 + 2 * steps["qloss"], "qat_qgram": 4 + 2 * steps["qat_qgram"],
+               "qat_all": 4 + 4 * steps["qat_all"]}
     k1_launches, k2_launches, k2_calls, k1_shapes = {}, {}, [], {}
     for label, ranks, names in (("s12", two, list(runs)), ("s22", four, four_names)):
         for i, name in enumerate(names):
@@ -3417,7 +3515,7 @@ def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str
             k1 = [r[i]["launches"]["k1"] for r in ranks]
             k2 = [r[i]["launches"]["k2"] for r in ranks]
             want1 = k1_want.get(name, 0) if on_card else 0
-            want2 = (SPACE_K2_STEP.get(name, 0) * steps
+            want2 = (SPACE_K2_STEP.get(name, 0) * steps[name]
                      + (QCONV_VGG_DEEP if name == "qloss" else 0)) if on_card else 0
             require(all(n == want1 for n in k1) and all(n == want2 for n in k2),
                     f"space_train: {label} {name}: K1 {k1} (not {want1}) and K2 {k2} (not "
@@ -3435,17 +3533,11 @@ def space_train_more(kw: dict, run_dir, steps: int, peaks: dict | None, smi: str
                     if shape[1] < shape[2]:  # a band, not a whole painting
                         key = (tuple(shape), dtype)
                         k1_shapes[key] = k1_shapes.get(key, 0) + count
-    bf16 = records("clf_bf16", "s12")
+    bf16 = records["s12", "clf_bf16"]
     require(bool(np.isfinite(bf16).all()), "space_train: 'classifier' bf16 losses not finite")
     k2 = (check_qconv_shapes(k2_calls, "train_space", peaks, cold=False) if on_card
           else {"shapes": 0, "launches": 0, "s32_max_abs_err": 0})
-    emit("space_train_more", one_process_s=one_s, two_rank_launch_s=two_s,
-         four_rank_launch_s=four_s, **rels,
-         epoch_secs={f"{label}_{name}": [e["secs"] for e in read_jsonl(os.path.join(
-             run_dir(f"{label}_{name}"), artist_of[name], mode_of[name], "metrics.jsonl"))
-             if e["event"] == "epoch"] for label, names in (("one", runs), ("s12", runs),
-                                                            ("s22", four_names))
-             for name in names},
+    emit("space_train_more", one_process_s=one_s, steps=steps, **rels, epoch_secs=epoch_secs,
          scales_a_rank={f"s12_{n}": len(two[0][i].get("scales", []))
                         for i, n in enumerate(runs)},
          k1_launches_rank0=k1_launches, k2_launches_rank0=k2_launches,
@@ -3465,11 +3557,12 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
                      diff_size: int = DIFF_SIZE, diff_base: int = DIFF_BASE, diff_T: int = DIFF_T,
                      diff_n: int = SPACE_MORE_DIFF_IMAGES, mem: dict | None = None,
                      grad_rtol: float = SPACE_MORE_GRAD_RTOL,
-                     stats_rtol: float = SPACE_MORE_STATS_RTOL) -> dict:
+                     stats_rtol: float = SPACE_MORE_STATS_RTOL) -> Generator[dict, dict, dict]:
     """Evaluation, artist-classifier training and diffusion training over a ('data',
     'space') mesh at full width, each image's rows over the 'space' ranks, on gloo ranks
     on cuda:0 (NCCL refuses two ranks on one card). In this process first: the one-process
-    runs. Then one launch of 2 ranks with mesh (1, 2) and one of 4 with mesh (2, 2):
+    runs. Then 2 ranks with mesh (1, 2) and 4 with mesh (2, 2), in the launches of
+    :func:`run_rank_phases` (this phase is a generator for it):
 
     - (a) ``evaluate_with_classifier`` of one batch of the eval phase's 1024² images, B=4,
       crop 256, f32 (the seeded classifier) and ``quantize=True`` (the decisive one), over
@@ -3510,7 +3603,7 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
     from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, evaluate_with_classifier
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
     from artist_style_transfer_tpu_torch.models.resnet import ARTISTS_19, init_classifier
-    from artist_style_transfer_tpu_torch.parallel import launch, workers
+    from artist_style_transfer_tpu_torch.parallel import workers
     from artist_style_transfer_tpu_torch.train.classifier import train_classifier
 
     on_card = device == "cuda"
@@ -3578,8 +3671,6 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
     again = {"clf": workers.classifier_step_rank(None, None, clf_mem),
              "diffusion": workers.diffusion_step_rank(None, None, dict(diff_mem))}
     one_s = time.perf_counter() - t0
-    if on_card:  # the ranks share the card: give back what this process's allocator holds
-        torch.cuda.empty_cache()
 
     def eval_jobs(shape):
         return [(workers.evaluate_rank, (model, c, images, artist, dict(eval_kw, quantize=q)),
@@ -3589,26 +3680,17 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
 
     diff_job = lambda shape: (workers.diffusion_rank, (dimgs, dlabels, diff_kw),  # noqa: E731
                               {"shape": shape})
-    dev = "cuda:0" if on_card else "cpu"
-    t0 = time.perf_counter()
-    two = launch(workers.run_jobs, 2, eval_jobs((1, 2)) + [
+    ranks = yield {2: eval_jobs((1, 2)) + [
         (workers.train_classifier_rank, (corpus, labels, clf_kw[f]),
          {"shape": (1, 2)}) for f in (True, False)] + [
         (workers.classifier_step_rank, ((1, 2), clf_mem), {}), diff_job((1, 2)),
         (workers.diffusion_step_rank, ((1, 2), diff_mem), {}),
         (workers.classifier_step_rank, ((1, 2), clf_f64), {})],
-        backend="gloo", device=dev, threads=None if on_card else 2, timeout_s=900)
-    two_s = time.perf_counter() - t0
-    emit("space_more_launch", ranks=2, one_process_s=one_s, launch_s=two_s)
-    t0 = time.perf_counter()
-    four = launch(workers.run_jobs, 4, eval_jobs((2, 2)) + [diff_job((2, 2))], backend="gloo",
-                  device=dev, threads=None if on_card else 1, timeout_s=900)
-    four_s = time.perf_counter() - t0
-    emit("space_more_launch", ranks=4, launch_s=four_s)
+        4: eval_jobs((2, 2)) + [diff_job((2, 2))]}
+    two, four = ranks[2], ranks[4]
 
     # (a) evaluation
-    report: dict = {"one_process_s": one_s, "two_rank_launch_s": two_s,
-                    "four_rank_launch_s": four_s, "clf_unfrozen_one_process_noise": unfrozen_noise}
+    report: dict = {"one_process_s": one_s, "clf_unfrozen_one_process_noise": unfrozen_noise}
     k2_calls, k2_launches, k1_launches = [], {}, {}
     for label, ranks, shape in (("1x2", two, (1, 2)), ("2x2", four, (2, 2))):
         for j, name in enumerate(("f32", "int8")):
@@ -4072,11 +4154,11 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
                     curve_epochs: int = CURVE_EPOCHS, curve_T: int = DIFF_T,
                     cli_samples: int = DIFF_CLI_SAMPLES) -> dict:
     """Class-conditional diffusion at the CLI's defaults (64x64, base 64, 19 classes,
-    T = 1000, B = 32): the UNet and guided DDIM-50 on the card against the port's CPU,
+    T = 1000, B = 32): the UNet and guided DDIM-20 on the card against the port's CPU,
     ``train_diffusion`` (2 epochs on 128 seeded images: finite, falling, warm ms/step,
     the step's FLOPs and bound, peak memory), ms per model evaluation of each sampler
     at B = 16 with and without guidance, and the CLI's train, sample and eval on a seeded
-    workspace; then the CFID quality curve at the config of
+    workspace (at T = 250); then the CFID quality curve at the config of
     ``tests/goldens/diffusion_cfid_curve.json`` (32x32, 2 classes, 256 real and 128
     generated images, 80 epochs, base 32, cosine schedule) with its orderings held.
     K1 and K2 are on none of these paths: each path's counters are zeroed just before
@@ -4101,7 +4183,7 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
     launches: dict[str, dict] = {}
     samplers = {"ddpm": diff_sample, "ddim": diff_sample_ddim, "dpmpp": diff_sample_dpmpp}
 
-    # The UNet and guided DDIM-50 on the device against the port's CPU, from one state.
+    # The UNet and guided DDIM-20 on the device against the port's CPU, from one state.
     cpu_model = redrawn_diff_model(DIFF_CLASSES, base, 3)
     model = copy_to(cpu_model, device)
     g = torch.Generator().manual_seed(5)
@@ -4118,7 +4200,7 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
     d_cpu, d_dev = GaussianDiffusion.make(T), GaussianDiffusion.make(T, device=device)
     clf_cpu = seeded_classifier("cpu")
     clf = copy_to(clf_cpu, device)
-    kw = dict(shape=(size, size), steps=DIFF_DDIM_STEPS, guidance_scale=2.0,
+    kw = dict(shape=(size, size), steps=DIFF_CPU_DDIM_STEPS, guidance_scale=2.0,
               classifier_y=[ARTISTS_19.index(CLF_ARTIST)] * 2)
     x_T = torch.randn((DIFF_CPU_IMAGES, size, size, 3), generator=g)
     t0 = time.perf_counter()
@@ -4128,8 +4210,8 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
     out, secs, launches["diffusion_ddim_guided"] = counted(lambda: diff_sample_ddim(
         model, d_dev, None, y, classifier=clf, x_T=x_T, device=device, **kw))
     db = psnr(out.cpu().numpy(), ref)
-    require(db > 45.0, f"diffusion: guided DDIM-50 {db} dB from the CPU")
-    emit("diffusion_ddim_guided", steps=DIFF_DDIM_STEPS, n=DIFF_CPU_IMAGES, size=size,
+    require(db > 45.0, f"diffusion: guided DDIM-{DIFF_CPU_DDIM_STEPS} {db} dB from the CPU")
+    emit("diffusion_ddim_guided", steps=DIFF_CPU_DDIM_STEPS, n=DIFF_CPU_IMAGES, size=size,
          guidance_scale=2.0, psnr_db=db, secs=secs, cpu_secs=cpu_s,
          saturated_share=float(np.mean((ref == 0.0) | (ref == 255.0))), card=smi)
     del cpu_model, clf_cpu
@@ -4169,9 +4251,11 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
     del step_model, opt
 
     # ms per model evaluation of each sampler at B = 16, unguided and guided. DDPM runs
-    # over a 100-step schedule: its work a model evaluation does not depend on T.
+    # over a 50-step schedule: its work a model evaluation does not depend on T.
     ys = [i % DIFF_CLASSES for i in range(DIFF_SAMPLE_BATCH)]
-    d_ddpm = GaussianDiffusion.make(min(T, 100), device=device)
+    d_ddpm = GaussianDiffusion.make(min(T, 50), device=device)
+    # A sampler's warm-up: 2 model evaluations of the timed run's shapes, with its guidance.
+    d_warm = GaussianDiffusion.make(2, device=device)
     per_eval, sampled = {}, {"k1": 0, "k2": 0}
     for name, steps in (("ddpm", None), ("ddim", DIFF_DDIM_STEPS), ("dpmpp", DIFF_DPMPP_STEPS)):
         for guided in (False, True):
@@ -4184,7 +4268,9 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
             def fn(name=name, dd=dd, skw=skw):
                 return samplers[name](trained, dd, torch.Generator().manual_seed(0), ys, **skw)
 
-            fn()  # warm-up
+            warm = skw if steps is None else dict(skw, steps=2)
+            samplers[name](trained, d_warm if steps is None else dd,
+                           torch.Generator().manual_seed(0), ys, **warm)
             out, secs, n = counted(fn)
             require(bool(torch.isfinite(out).all()), f"diffusion: {name} samples not finite")
             evals = sampler_evals(name, steps or 0, dd.num_timesteps)
@@ -4205,8 +4291,8 @@ def phase_diffusion(peaks: dict | None, smi: str, device: str = "cuda", size: in
         clf_path = os.path.join(ws["models"], "best-2.pth")
         torch.save({"model": seeded_classifier("cpu").state_dict()}, clf_path)
         npz = os.path.join(ws["models"], "diffusion", "diff_model.npz")
-        common = ["--image_size", str(size), "--num_timesteps", str(T), "--base_channels",
-                  str(base), "--device", device]
+        common = ["--image_size", str(size), "--num_timesteps", str(min(T, DIFF_CLI_T)),
+                  "--base_channels", str(base), "--device", device]
         artist = DIFF_CLI_ARTISTS[0][0].replace(" ", "_")
         n_paint = sum(k for _, k in DIFF_CLI_ARTISTS)
 
@@ -4505,60 +4591,111 @@ def profile_stream(vgg) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def ok_line() -> str:
+    """The last line: the run passed, on this card."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+PHASES = ("gram", "stylize", "gatys", "train", "classifier", "eval", "train_classifier", "data",
+          "display", "int8", "int8_train", "train_artist_classifier", "serve", "parallel",
+          "space_train", "space_more", "kernel_rows", "diffusion")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     parser.add_argument("--profile", action="store_true",
                         help="also profile Gatys steps, a stylize batch, train steps of both "
                              "modes, an eval batch and streamed train steps by kernel")
+    parser.add_argument("--phases", nargs="+", choices=PHASES, metavar="PHASE",
+                        help="run only these phases after header and build (serve adds "
+                             "train_artist_classifier, whose classifier it serves), print the "
+                             "timing line but no kernels line, and end with a line that names "
+                             "the probe instead of the ok line; default: every phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     import artist_style_transfer_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    smi = phase_header()
+    chosen = set(args.phases or PHASES)
+    if "serve" in chosen:
+        chosen.add("train_artist_classifier")
+    if "space_train" in chosen:  # its 'classifier' and int8 runs, and K1 at their bands
+        chosen |= {"space_train_more", "space_train_k1"}
+    seconds: dict[str, float] = {}
+    start = time.perf_counter()
+
+    def run(name: str, fn, *a, **kw):
+        """Run one phase when it was chosen, on the host clock; None when it was not."""
+        if name not in chosen and name not in ("header", "build", "profile"):
+            return None
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    smi = run("header", phase_header)
     variant, peaks = peaks_for(smi)
-    phase_build()
-    gram = phase_gram(peaks)
-    phase_stylize()
-    launches = {"gatys": phase_gatys()}
-    launches["train"], launches["train_bf16"] = phase_train(peaks)
-    phase_classifier(peaks)
-    launches["eval"] = phase_eval()
-    launches["train_classifier"] = phase_train_classifier(peaks)
+    run("build", phase_build)
+    gram = run("gram", phase_gram, peaks)
+    run("stylize", phase_stylize)
+    launches = {"gatys": run("gatys", phase_gatys)}
+    launches["train"], launches["train_bf16"] = run("train", phase_train, peaks) or (None, None)
+    run("classifier", phase_classifier, peaks)
+    launches["eval"] = run("eval", phase_eval)
+    launches["train_classifier"] = run("train_classifier", phase_train_classifier, peaks)
     torch.cuda.reset_peak_memory_stats()
-    launches["train_cli"], launches["train_stream"] = phase_data()
-    phase_display()
-    int8 = phase_int8(peaks, smi)
+    launches["train_cli"], launches["train_stream"] = run("data", phase_data) or (None, None)
+    run("display", phase_display)
+    int8 = run("int8", phase_int8, peaks, smi) or {"k1_launches": {}}
     launches.update(int8["k1_launches"])
-    int8_train = phase_int8_train(peaks, smi)
+    int8_train = run("int8_train", phase_int8_train, peaks, smi) or {"k1_launches": {}}
     launches.update(int8_train["k1_launches"])
-    artist_clf = phase_train_artist_classifier(peaks, smi)
-    launches["train_artist_classifier"] = artist_clf["launches"]
-    try:
-        serve = phase_serve(smi, artist_clf["best"], artist_clf["cli_pth"], profile=args.profile)
-    finally:
-        shutil.rmtree(artist_clf["tmp"], ignore_errors=True)
+    artist_clf = run("train_artist_classifier", phase_train_artist_classifier, peaks, smi)
+    serve = {"k1_launches": {}}
+    if artist_clf is not None:
+        launches["train_artist_classifier"] = artist_clf["launches"]
+        try:
+            serve = run("serve", phase_serve, smi, artist_clf["best"], artist_clf["cli_pth"],
+                        profile=args.profile) or serve
+        finally:
+            shutil.rmtree(artist_clf["tmp"], ignore_errors=True)
     launches.update(serve["k1_launches"])
-    par = phase_parallel(peaks)
-    launches.update(par["k1_launches"])
-    space = phase_space_train(peaks, smi)
-    launches.update(space["k1_launches"])
-    space_more = phase_space_more(peaks, smi)
-    launches.update(space_more["k1_launches"])
-    rows = phase_kernel_rows(peaks, smi)
-    diff = phase_diffusion(peaks, smi)
+    # The phases with gloo ranks on the card share one launch a world size.
+    rank_phases = {name: fn(*a) for name, fn, a in (
+        ("parallel", phase_parallel, (peaks,)), ("space_train", phase_space_train, (peaks, smi)),
+        ("space_train_more", space_train_more, (peaks, smi)),
+        ("space_more", phase_space_more, (peaks, smi))) if name in chosen}
+    ranked = run_rank_phases(rank_phases, seconds=seconds) if rank_phases else {}
+    par, space, space_modes, space_more = (
+        ranked.get(name, {"k1_launches": {}, "k1_shapes": {}})
+        for name in ("parallel", "space_train", "space_train_more", "space_more"))
+    for value in (par, space, space_modes, space_more):
+        launches.update(value["k1_launches"])
+    space_k1 = run("space_train_k1", space_k1_rows,
+                   [space["k1_shapes"], space_modes["k1_shapes"]], peaks, smi)
+    rows = run("kernel_rows", phase_kernel_rows, peaks, smi)
+    diff = run("diffusion", phase_diffusion, peaks, smi) or {"k1_launches": {}}
     launches.update(diff["k1_launches"])
     if args.profile:
-        phase_profile()
+        run("profile", phase_profile)
+    # Each phase's seconds on the host clock, build included: where a cut of depth pays.
+    print(json.dumps({"phase": "timing", "seconds": seconds,
+                      "total_s": time.perf_counter() - start}), flush=True)
     print(smi, flush=True)
+    if args.phases:  # a probe: not the contract's line
+        print(json.dumps({"probe": args.phases, "passed": True}), flush=True)
+        return 0
     # K2's times: the sums over the 68 launches of one int8 eval batch (the main path).
     k2 = {k: int8["shapes"]["eval_transformer_1024"][k] + int8["shapes"]["eval_resnet_256"][k]
           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
                     "cudnn_bf16_ms", "library_ms", "library_k2_ms", "library_k2_device_ms",
                     "library_launches", "library_failed_launches")}
     paths = {**int8["shapes"], **int8_train["shapes"], "stylize_spatial_int8_band": par["band"],
-             "train_space_band": space["k2"], "eval_int8_space_band": space_more["k2"]}
+             "train_space_band": space_modes["k2"], "eval_int8_space_band": space_more["k2"]}
     k2_err = {k: max(v[k] for v in paths.values())
               for k in ("s32_max_abs_err", "dequant_max_rel_err")}
     # K2's data gradients: the sums over one step's dgrad launches of each int8 training net.
@@ -4628,8 +4765,8 @@ def main(argv=None) -> int:
         "train_taps_bf16": gram["train_taps_bf16"],
         "int8_train_taps_bf16": gram["int8_train_taps_bf16"],
         "train_dp_taps": rows["k1_train_dp"],
-        "train_space_taps": space["step_taps"],
-        "train_space_shapes": space["k1_rows"],
+        "train_space_taps": space_k1["step_taps"],
+        "train_space_shapes": space_k1["k1_rows"],
         "peaks": variant,
     }, {
         "name": "qconv_i8",
@@ -4638,7 +4775,7 @@ def main(argv=None) -> int:
         "replaces": QCONV_REPLACES,
         "launches": int8["launches"]["eval_int8"],
         "launches_by_path": {**int8["launches"], **int8_train["launches"],
-                             **serve["launches"], **par["k2_launches"], **space["k2_launches"],
+                             **serve["launches"], **par["k2_launches"], **space_modes["k2_launches"],
                              **space_more["k2_launches"], **diff["k2_launches"]},
         "max_abs_err": k2_err["s32_max_abs_err"],
         "bf16_mismatches": sum(v["bf16_mismatches"] for v in paths.values()),
@@ -4672,9 +4809,10 @@ def main(argv=None) -> int:
                         "quantize_loss and QAT trunk (4 steps x 38 + 6, the single "
                         "process's count); train_space_<run> rank 0 of 2 ranks on one card "
                         "over gloo training over a ('data', 'space') mesh (1, 2), one f32 "
-                        "epoch of 4 steps at 224x224, global B=4, each conv forward and dgrad "
-                        "on the rank's band: qloss 4 x 12 + 6 (the targets), qat_qgram 4 x "
-                        "26, qat_all 4 x 32, qclf 4 x 104, clf and clf_bf16 0; the _2x2 ones "
+                        "epoch of 4 steps at 224x224, global B=4 (qclf 2 steps, 8 images), "
+                        "each conv forward and dgrad on the rank's band: qloss 4 x 12 + 6 "
+                        "(the targets), qat_qgram 4 x 26, qat_all 4 x 32, qclf 2 x 104, clf "
+                        "and clf_bf16 0; the _2x2 ones "
                         "rank 0 of 4 with mesh (2, 2), the same counts; "
                         "eval_int8_space_1x2 and eval_int8_space_2x2 rank 0 of the int8 eval "
                         "over a ('data', 'space') mesh (1, 2) and (2, 2) on gloo ranks on one "
@@ -4708,11 +4846,7 @@ def main(argv=None) -> int:
         "kernel_rows": rows["k2"],
         "peaks": variant,
     }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    print(ok_line(), flush=True)
     return 0
 
 

@@ -97,14 +97,34 @@ def test_train_writes_the_reference_artifacts(hooks, tmp_path):
             np.testing.assert_array_equal(loaded(x).numpy(), want)
 
 
-def test_content_data_size_caps_the_corpus(hooks):
-    """The first ``content_data_size`` hook images are the corpus: 2 of 4 at B=2 is one
-    step an epoch, and the run equals one given just those 2 images."""
-    _, capped = run(hooks, None, num_epochs=1, content_data_size=2)
-    _, given = run(dict(hooks, content_images=hooks["content_images"][:2]), None, num_epochs=1)
-    _, whole = run(hooks, None, num_epochs=1)
-    np.testing.assert_array_equal(capped, given)
-    assert not np.array_equal(capped, whole)
+def batch_steps(run_dir) -> list[tuple[int, int]]:
+    """(epoch, batch) of every ``batch`` event of a run's ``metrics.jsonl``."""
+    with open(run_dir / "metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    return [(r["epoch"], r["batch"]) for r in records if r["event"] == "batch"]
+
+
+def test_content_data_size_caps_the_corpus(hooks, tmp_path):
+    """JAX's rule (``train/api.py:196-197``): ``content_images`` is the whole corpus,
+    whatever ``content_data_size`` says. 4 images with ``content_data_size=2`` at B=2
+    train 2 steps an epoch, as JAX's ``train()`` does on the same hooks, and the run
+    equals one on the whole hook."""
+    from artist_style_transfer_tpu.train import train as jax_train
+    from artist_style_transfer_tpu.utils.torch_import import vgg16_params_from_torch
+
+    kw = dict(num_epochs=2, log_every_batches=1)
+    _, capped = run(hooks, tmp_path / "port", content_data_size=2, **kw)
+    _, whole = run(hooks, None, **kw)
+    np.testing.assert_array_equal(capped, whole)
+    jax_train("cycle", "Artist", content_images=hooks["content_images"],
+              paintings=hooks["paintings"],
+              vgg_params=vgg16_params_from_torch(
+                  {k: v.numpy() for k, v in hooks["vgg"].state_dict().items()}),
+              model_dir=str(tmp_path / "jax"), batch_size=2, content_data_size=2, seed=3,
+              wordy=False, **kw)
+    steps = [(e, b) for e in (1, 2) for b in (1, 2)]
+    assert batch_steps(tmp_path / "port" / "Artist" / "cycle") == steps
+    assert batch_steps(tmp_path / "jax" / "Artist" / "cycle") == steps
 
 
 @pytest.mark.parametrize("mode", ["random", "average", "smartaverage"])

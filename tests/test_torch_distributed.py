@@ -232,6 +232,28 @@ def test_launch_fails_when_any_rank_fails():
         launch(_dies, 0, backend="gloo", device="cpu")
 
 
+def _echo(mesh, x):
+    x[0] = mesh.rank  # each rank's own copy
+    return {"rank": mesh.rank, "x": x}
+
+
+def test_launch_passes_arguments_and_results_through_files_it_removes(monkeypatch, tmp_path):
+    """Arguments and results cross as plain pickles through files in a temporary
+    directory (``TMPDIR``), which the launch removes, after success as after a failure."""
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    x = np.arange(1, 1 + (1 << 18), dtype=np.float64)
+    got = launch(_echo, 2, x, timeout_s=120, backend="gloo", device="cpu")
+    assert [g["rank"] for g in got] == [0, 1] and x[0] == 1.0
+    for r, g in enumerate(got):
+        np.testing.assert_array_equal(g["x"][1:], x[1:])
+        assert g["x"][0] == r
+    with pytest.raises(RuntimeError, match="rank 0 failed"):
+        launch(_fails, 2, 0, timeout_s=120, backend="gloo", device="cpu")
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_launch_runs_on_the_card_over_nccl_unless_asked(monkeypatch):
     # The card by default: without CUDA the launch raises before it starts a rank.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port, and its PNG reader against OpenCV.
 
-The port, ``chip_smoke.py``, ``bench_gram.py`` and ``bench_qconv.py`` must
-import neither JAX nor the JAX package.
+The port, ``chip_smoke.py`` and the bench scripts (``bench_gram.py``, ``bench_qconv.py``,
+``bench_launch.py``) must import neither JAX nor the JAX package, and name no path under
+the JAX side's ``native/`` or ``artist_style_transfer_tpu/``.
 The check is a static ``ast`` scan of the source, so a ``sitecustomize``
 that pre-imports JAX cannot hide an import. ``artist_style_transfer_tpu_torch``
 starts with the JAX package's name, so a module counts only when it *is*
@@ -14,6 +15,7 @@ PIL; it must give exactly what ``cv2.imread`` gives.
 import ast
 import os
 import pathlib
+import re
 import struct
 import zlib
 
@@ -51,7 +53,7 @@ def imported_modules(path: pathlib.Path) -> list[str]:
 
 def port_files() -> list[pathlib.Path]:
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_gram.py",
-                                          ROOT / "bench_qconv.py"]
+                                          ROOT / "bench_qconv.py", ROOT / "bench_launch.py"]
 
 
 @pytest.mark.parametrize(
@@ -95,6 +97,78 @@ def test_port_and_chip_smoke_import_no_jax():
         if (bad := [m for m in imported_modules(p) if is_forbidden(m)])
     }
     assert offenders == {}
+
+
+JAX_DIRS = ("native", "artist_style_transfer_tpu")
+PATH_CALLS = ("join", "joinpath", "Path", "PurePath", "open")
+# "artist_style_transfer_tpu/models/transformer_q.py:62": a citation of a JAX line
+# (what a port kernel replaces), not a path that is read.
+JAX_LINE = re.compile(r"artist_style_transfer_tpu/[\w/]+\.py:\d+")
+JAX_PATH = re.compile(r"(^|[^\w])(native|artist_style_transfer_tpu)/")
+
+
+def jax_paths(path: pathlib.Path) -> list[tuple[int, str]]:
+    """(line, text) of every path under ``native/`` or ``artist_style_transfer_tpu/``
+    that a file names in code: a string holding such a path, or ``"native"`` /
+    ``"artist_style_transfer_tpu"`` joined into a path (``/`` on a ``Path``,
+    ``os.path.join``, ``Path(...)``, ``open``). Docstrings, comments and citations of
+    a JAX line (``file.py:N``) are not paths."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)}
+    found = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs and JAX_PATH.search(JAX_LINE.sub("", node.value))):
+            found.append((node.lineno, node.value))
+        parts = []
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            parts = [node.left, node.right]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in PATH_CALLS:
+            parts = node.args
+        found += [(p.lineno, p.value) for p in parts
+                  if isinstance(p, ast.Constant) and p.value in JAX_DIRS]
+    return found
+
+
+@pytest.mark.parametrize(
+    "code,bad",
+    [
+        ('SOURCE = REPO_ROOT / "native" / "dataloader.cpp"\n', True),
+        ('p = os.path.join(ROOT, "native", "dataloader.cpp")\n', True),
+        ('p = pathlib.Path("artist_style_transfer_tpu", "ops")\n', True),
+        ('p = ROOT.joinpath("artist_style_transfer_tpu")\n', True),
+        ('p = "native/Makefile"\n', True),
+        ('p = f"{ROOT}/artist_style_transfer_tpu/ops/gram.py"\n', True),
+        ('"""Builds native/dataloader.cpp (artist_style_transfer_tpu/data/x.py)."""\n', False),
+        ('x = 1  # native/Makefile\n', False),
+        ('R = "artist_style_transfer_tpu/ops/pallas/gram_kernel.py:60"\n', False),
+        ('route = "native" if ok else "cv2"\n', False),
+        ('SOURCE = PACKAGE_DIR / "csrc" / "dataloader.cpp"\n', False),
+    ],
+)
+def test_path_scanner(tmp_path, code, bad):
+    src = tmp_path / "m.py"
+    src.write_text(code)
+    assert bool(jax_paths(src)) is bad
+
+
+def test_port_names_no_path_of_the_jax_side():
+    """The port, ``chip_smoke.py`` and the bench scripts read no file under ``native/``
+    or ``artist_style_transfer_tpu/``: the port keeps its own copy of what it needs."""
+    offenders = {str(p.relative_to(ROOT)): found for p in port_files() if (found := jax_paths(p))}
+    assert offenders == {}
+
+
+def test_decode_pool_source_is_the_ports_own():
+    """The native decode pool builds the port's copy of the C++ source, which is the JAX
+    package's ``native/dataloader.cpp`` byte for byte (both pools decode alike)."""
+    from artist_style_transfer_tpu_torch.data import native_loader
+
+    source = native_loader.SOURCE.resolve()
+    assert source == PORT / "csrc" / "dataloader.cpp" and source.is_relative_to(PORT)
+    assert source.read_bytes() == (ROOT / "native" / "dataloader.cpp").read_bytes()
 
 
 PARALLEL = ("__init__", "distributed", "launch", "mesh", "spatial", "workers")
