@@ -1,0 +1,2 @@
+"""% of the traced window with no operation on the device."""
+from benchlib.readers import idle_share as read  # noqa: F401
