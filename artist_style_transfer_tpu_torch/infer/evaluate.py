@@ -47,6 +47,7 @@ from artist_style_transfer_tpu_torch.parallel.mesh import (
 )
 from artist_style_transfer_tpu_torch.parallel.spatial import RowBands, center_crop_rows
 from artist_style_transfer_tpu_torch.utils.device import module_device, resolve_device, same_device
+from artist_style_transfer_tpu_torch.utils.trace import span
 
 
 def eval_logits(
@@ -146,11 +147,12 @@ def evaluate_with_classifier(
         raise ValueError(f"the mesh's device is {mesh.device}, not {dev}")
     wordy = wordy and (mesh is None or mesh.rank == 0)
     if quantize:
-        calib = [np.asarray(content_images[i]) for i in range(min(2, len(content_images)))]
-        # Calibrate on same-shape images (mixed-size lists cannot stack).
-        calib = [c for c in calib if c.shape == calib[0].shape]
-        model, classifier = quantize_eval_pipeline(model, classifier, np.stack(calib))
-        make_global(mesh, (model, classifier))  # one set of int8 scales on every rank
+        with span("eval.quantize"):
+            calib = [np.asarray(content_images[i]) for i in range(min(2, len(content_images)))]
+            # Calibrate on same-shape images (mixed-size lists cannot stack).
+            calib = [c for c in calib if c.shape == calib[0].shape]
+            model, classifier = quantize_eval_pipeline(model, classifier, np.stack(calib))
+            make_global(mesh, (model, classifier))  # one set of int8 scales on every rank
     sharded = mesh is not None and batch_size % data_size(mesh) == 0
     space = mesh.axis_mesh("space") if spatial_size(mesh) > 1 else None
     # the ranks that hold one batch between them, for the int8 classifier's scales
@@ -164,22 +166,26 @@ def evaluate_with_classifier(
     for idxs in by_shape.values():
         for j in range(0, len(idxs), batch_size):
             take = idxs[j : j + batch_size]
-            chunk = np.stack([np.asarray(content_images[i]) for i in take])
-            pad = batch_size - len(take)
-            if pad:
-                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
-            x = torch.as_tensor(chunk)
-            if sharded:
-                x = shard_batch(x, mesh)
-            bands = None
-            if space is not None:
-                bands = RowBands.even(space, x.shape[1])
-                x = x[:, slice(*bands.bounds())]
-            p = eval_logits(model, classifier, x.to(dev), crop_size, scales_mesh,
-                            bands).argmax(-1)
-            if sharded:
-                p = torch.cat(mesh.axis_mesh("data").all_gather(p))
-            preds[take] = p.cpu().numpy()[: len(take)]
+            with span("eval.stage"):
+                chunk = np.stack([np.asarray(content_images[i]) for i in take])
+                pad = batch_size - len(take)
+                if pad:
+                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+                x = torch.as_tensor(chunk)
+                if sharded:
+                    x = shard_batch(x, mesh)
+                bands = None
+                if space is not None:
+                    bands = RowBands.even(space, x.shape[1])
+                    x = x[:, slice(*bands.bounds())]
+            with span("eval.h2d"):
+                x = x.to(dev)
+            with span("eval.logits"):
+                p = eval_logits(model, classifier, x, crop_size, scales_mesh, bands).argmax(-1)
+            with span("eval.fetch"):
+                if sharded:
+                    p = torch.cat(mesh.axis_mesh("data").all_gather(p))
+                preds[take] = p.cpu().numpy()[: len(take)]
     correct = int((preds == artist_index).sum())
     if wordy and artists is not None:
         for i, p in enumerate(preds):

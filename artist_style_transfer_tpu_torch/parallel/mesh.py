@@ -8,7 +8,8 @@ and two ranks sharing one card, which NCCL refuses). Collectives go through the
 mesh's methods, which skip nothing: a mesh over a process group runs every
 collective, a world of one included; only a mesh made where no process group was
 initialized (one process, no launcher), and a one-rank line of a mesh of several
-axes, have no group, and their collectives are the identity.
+axes, have no group, and their collectives are the identity. Each collective runs in the
+span ``mesh.collective`` (:func:`utils.trace.span`), on a running profiler's clock.
 
 The ranks lie row-major over ``shape``, as JAX's ``make_mesh`` reshapes its devices:
 on a ('data', 'space') mesh of shape (d, s) rank ``i_data * s + i_space``.
@@ -25,32 +26,16 @@ slice (:func:`shard_batch`), and replicated state is the same tensor on every ra
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
-import time
 
 import torch
 import torch.distributed as dist
 
 from artist_style_transfer_tpu_torch.utils.device import resolve_device
+from artist_style_transfer_tpu_torch.utils.trace import span
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-
-# Host seconds this process has spent in its meshes' collectives, a tracing counter that
-# ``parallel.workers`` reads around a run: over gloo the whole collective, over NCCL its
-# enqueue. Two clock reads a collective.
-COLLECTIVE_SECONDS = 0.0
-
-
-@contextlib.contextmanager
-def _collective():
-    global COLLECTIVE_SECONDS
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        COLLECTIVE_SECONDS += time.perf_counter() - t0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,7 +80,7 @@ class Mesh:
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or max, ``op="max"``) ``t`` over the ranks, in place; returns ``t``."""
         if self.group is not None:
-            with _collective():
+            with span("mesh.collective"):
                 dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
@@ -104,14 +89,14 @@ class Mesh:
         if self.group is None:
             return [t]
         out = [torch.empty_like(t) for _ in range(self.size)]
-        with _collective():
+        with span("mesh.collective"):
             dist.all_gather(out, t.contiguous(), group=self.group)
         return out
 
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank, in place; returns ``t``."""
         if self.group is not None:
-            with _collective():
+            with span("mesh.collective"):
                 dist.broadcast(t, src=dist.get_global_rank(self.group, 0), group=self.group)
         return t
 

@@ -6,10 +6,9 @@ them by name; the port's multi-rank tests and ``chip_smoke.py`` launch them
 (:func:`run_jobs` runs several in one launch). Each takes the :class:`Mesh` that
 ``launch`` builds first; models cross as modules (pickled), images as numpy
 arrays. The functions that run an entry point also report its wall seconds
-(ending in a device sync), the launches of the hand kernels K1 and K2 that
-their rank made (0 on the CPU) and the host time of their collectives
-(:data:`parallel.mesh.COLLECTIVE_SECONDS`); with ``profile=True``, from
-``torch.profiler``, its device time and the device time of NCCL's kernels.
+(ending in a device sync) and the launches of the hand kernels K1 and K2 that
+their rank made (0 on the CPU); with ``profile=True``, from ``torch.profiler``, its
+device time and the device time of NCCL's kernels.
 """
 
 from __future__ import annotations
@@ -69,18 +68,13 @@ def _sync(mesh: Mesh) -> None:
 
 
 def _timed(mesh: Mesh, fn, profile: bool = False):
-    """``fn()``'s result and its stats: ``secs``, ``launches``, ``collective_ms`` (the
-    host ms of this rank's collectives, :data:`parallel.mesh.COLLECTIVE_SECONDS`), and
-    with ``profile`` ``device_ms`` and ``collective_device_ms``. On CUDA the profiler
-    records the device alone: both numbers are kernels' times, and the host's op events
-    made the profiler's own work after the run two to four times as long (3.4-4.6 s
-    against 1.2-2.0 s after a 'cycle' epoch at 224², B=4, the same device ms, on an
-    H100: ``bench_launch.py``)."""
-    from artist_style_transfer_tpu_torch.parallel import mesh as mesh_module
-
+    """``fn()``'s result and its stats: ``secs``, ``launches``, and with ``profile``
+    ``device_ms`` and ``collective_device_ms``. On CUDA the profiler records the device
+    alone: both numbers are kernels' times, and the host's op events made the profiler's
+    own work after the run two to four times as long (3.4-4.6 s against 1.2-2.0 s after a
+    'cycle' epoch at 224², B=4, the same device ms, on an H100: ``bench_launch.py``)."""
     _sync(mesh)
     _reset_launches()
-    mesh_module.COLLECTIVE_SECONDS = 0.0
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -96,8 +90,7 @@ def _timed(mesh: Mesh, fn, profile: bool = False):
         secs = time.perf_counter() - t0
         if prof is not None:
             prof.stop()
-    stats = {"secs": secs, "launches": _launches(),
-             "collective_ms": mesh_module.COLLECTIVE_SECONDS * 1e3}
+    stats = {"secs": secs, "launches": _launches()}
     if prof is not None:
         from torch.autograd import DeviceType
 

@@ -118,6 +118,7 @@ from artist_style_transfer_tpu_torch.parallel.mesh import (
 )
 from artist_style_transfer_tpu_torch.parallel.spatial import RowBands
 from artist_style_transfer_tpu_torch.train.styles import StyleTargets, select_step_grams
+from artist_style_transfer_tpu_torch.utils.trace import span
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -305,30 +306,34 @@ def make_step_fns(
         # local: the batch is this rank's slice already (a streamed batch under a mesh;
         # under a 'space' axis, its band ``bands`` of the data slice's rows, and
         # content_r22 that band's relu2_2)
-        optimizer.zero_grad(set_to_none=True)
-        # A full batch shards over the data slices (the 'space' ranks share one); the
-        # ragged tail only where the mesh's size divides it, as JAX's ``tail_mesh``.
-        n = batch.shape[0]
-        sharded = mesh is not None and (local or n % (
-            mesh.size if n < batch_size else data_size(mesh)) == 0)
-        if sharded and not local:
-            batch, content_r22 = shard_batch(batch, mesh), shard_batch(content_r22, mesh)
-            if banded:
-                bands = RowBands.split(space, batch.shape[1])
-                batch, content_r22 = rows_of(batch, bands), rows_of(content_r22)
-        if banded and sharded:
-            total, (c_loss, s_loss) = loss_rows(params, batch, bands, content_r22,
-                                                targets.grams, step)
-        else:
-            total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams, step,
-                                              mesh if sharded else None)
-        total.backward()
-        losses = torch.stack([c_loss, s_loss, total]).detach()
-        if mesh is not None:
-            losses = sync_gradients(list(params.values()), losses, mesh, sharded)
-        optimizer.step()
-        scheduler.step()
-        return losses
+        with span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            # A full batch shards over the data slices (the 'space' ranks share one); the
+            # ragged tail only where the mesh's size divides it, as JAX's ``tail_mesh``.
+            n = batch.shape[0]
+            sharded = mesh is not None and (local or n % (
+                mesh.size if n < batch_size else data_size(mesh)) == 0)
+            if sharded and not local:
+                batch, content_r22 = shard_batch(batch, mesh), shard_batch(content_r22, mesh)
+                if banded:
+                    bands = RowBands.split(space, batch.shape[1])
+                    batch, content_r22 = rows_of(batch, bands), rows_of(content_r22)
+            with span("train.loss"):
+                if banded and sharded:
+                    total, (c_loss, s_loss) = loss_rows(params, batch, bands, content_r22,
+                                                        targets.grams, step)
+                else:
+                    total, (c_loss, s_loss) = loss_fn(params, batch, content_r22, targets.grams,
+                                                      step, mesh if sharded else None)
+            with span("train.backward"):
+                total.backward()
+            with span("train.update"):
+                losses = torch.stack([c_loss, s_loss, total]).detach()
+                if mesh is not None:
+                    losses = sync_gradients(list(params.values()), losses, mesh, sharded)
+                optimizer.step()
+                scheduler.step()
+            return losses
 
     def rows_of(t, bands: RowBands | None = None):
         """This rank's band (``bands``, else split as every layer splits its output) of
@@ -340,9 +345,10 @@ def make_step_fns(
         perm = torch.as_tensor(np.array(perm), dtype=torch.long).to(content_data.device)
         losses = []
         for i in range(steps_per_epoch):
-            idx = perm[i * batch_size : (i + 1) * batch_size]  # the last one may be ragged
-            losses.append(step_fn(content_data.index_select(0, idx),
-                                  content_r22.index_select(0, idx), base_step + i))
+            with span("train.batch"):
+                idx = perm[i * batch_size : (i + 1) * batch_size]  # the last one may be ragged
+                batch, r22 = content_data.index_select(0, idx), content_r22.index_select(0, idx)
+            losses.append(step_fn(batch, r22, base_step + i))
         return torch.stack(losses)
 
     def stream_step_fn(batch, step):

@@ -3178,18 +3178,16 @@ def phase_parallel(peaks: dict | None, device: str = "cuda", train_size: int = T
     emit("parallel", ranks=PAR_RANKS, backends={"part1": backend1, "part2": "gloo"},
          part1_wall_s=part1_s, part2_rank0_jobs_s=part2_s,
          part1_device_ms=stat(runs1, "device_ms"), part2_rank0_device_ms=stat(runs2, "device_ms"),
-         part1_nccl_host_ms=stat(runs1, "collective_ms"),
          part1_nccl_device_ms=stat(runs1, "collective_device_ms"),
-         part2_rank0_gloo_host_ms=stat(runs2, "collective_ms"),
          world_of_one={k: (v if not isinstance(v, dict) else
                            {kk: v[kk] for kk in ("secs", "launches", "device_ms",
-                                                 "collective_ms", "collective_device_ms",
-                                                 "psnr_db") if kk in v})
+                                                 "collective_device_ms", "psnr_db")
+                            if kk in v})
                        for k, v in one.items()},
          two_ranks={**two, "codes_equal": codes_ok, "int32_equal": acc_ok,
                     "eval_int8_acc": eval_r["acc"],
-                    "jobs": {name: {kk: r[kk] for kk in ("secs", "launches", "device_ms",
-                                                        "collective_ms") if kk in r}
+                    "jobs": {name: {kk: r[kk] for kk in ("secs", "launches", "device_ms")
+                                    if kk in r}
                              for name, r in zip(("train_dp", "stylize_spatial",
                                                  "stylize_spatial_int8", "first_conv",
                                                  "eval_int8_dp", "train_classifier_dp",
@@ -3364,7 +3362,7 @@ def phase_space_train(peaks: dict | None, smi: str, device: str = "cuda",
             f"space_train: K1 ran at {len(shapes)} band shapes, not 4 taps x 3 runs")
     mem = {"one_process": mem_one.get("peak_mem_gib"),
            "ranks_1x2": [r[3].get("peak_mem_gib") for r in two]}
-    timing = {name: {k: r.get(k) for k in ("secs", "device_ms", "collective_ms")}
+    timing = {name: {k: r.get(k) for k in ("secs", "device_ms")}
               for name, r in (("s12_rank0", two[0][0]), ("s22_rank0", four[0][0]))}
     emit("space_train", size=size, batch=TRAIN_BATCH, steps=steps * wide_epochs,
          one_process_s=one_s, solo_s=solo_s, epoch_secs=epoch_secs, solo_rel=solo_rel, **rels,
@@ -3593,12 +3591,10 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
       Each step is run twice in the one process, and the distance of the two printed
       beside the bands'.
 
-    Every run's ms a step and rank 0's host ms in gloo's collectives
-    (``parallel.mesh.COLLECTIVE_SECONDS``; the profiler would add 10-40 s a run) are
-    printed. Returns the kernels
-    line's launches and K2's band-shape sums. ``device="cpu"`` (with small sizes, and bars
-    ``clf_rtol``, ``grad_rtol`` and ``stats_rtol`` for them) rehearses it over gloo on the CPU, without the
-    K2 checks."""
+    Every run's ms a step is printed. Returns the kernels line's launches and K2's
+    band-shape sums. ``device="cpu"`` (with small sizes, and bars ``clf_rtol``,
+    ``grad_rtol`` and ``stats_rtol`` for them) rehearses it over gloo on the CPU, without
+    the K2 checks."""
     from artist_style_transfer_tpu_torch.diffusion.train import train_diffusion
     from artist_style_transfer_tpu_torch.infer.evaluate import eval_logits, evaluate_with_classifier
     from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params
@@ -3715,8 +3711,7 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
                             memory_format=torch.channels_last)
                         k2_calls += [(x, w, *rest)] * count
             emit("space_more_run", run=f"eval_{name}_{label}", images=SPACE_MORE_EVAL,
-                 size=eval_size, ms_per_batch=ranks[0][j]["secs"] * 1e3,
-                 gloo_host_ms=ranks[0][j]["collective_ms"], card=smi)
+                 size=eval_size, ms_per_batch=ranks[0][j]["secs"] * 1e3, card=smi)
         logits = np.concatenate([ranks[i * shape[1]][2]["logits"] for i in range(shape[0])])
         rel = float(np.abs(logits - one_logits).max() / np.abs(one_logits).max())
         require(rel <= 1e-3 and np.array_equal(logits.argmax(-1), one_logits.argmax(-1)),
@@ -3750,8 +3745,7 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
         k1_launches[f"train_classifier_space_{name}"] = got[0]["k1"]
         emit("space_more_run", run=f"train_classifier_{name}_1x2", steps=clf_steps,
              ms_per_step=runs[0]["secs"] * 1e3 / clf_steps,
-             one_process_ms_per_step=secs * 1e3 / clf_steps,
-             gloo_host_ms=runs[0]["collective_ms"], card=smi)
+             one_process_ms_per_step=secs * 1e3 / clf_steps, card=smi)
     # The unfrozen step before any update: the loss within 1e-4 of the one process's, the
     # BN statistics and, in f64, the gradients leaf by leaf.
     report["clf_step_rel"] = par_trajectory("space (1, 2) 512² unfrozen classifier step",
@@ -3789,8 +3783,7 @@ def phase_space_more(peaks: dict | None, smi: str, device: str = "cuda",
         k1_launches[f"diffusion_train_space_{label}"] = got[0]["k1"]
         emit("space_more_run", run=f"train_diffusion_{label}", steps=diff_steps,
              ms_per_step=runs[0]["secs"] * 1e3 / diff_steps,
-             one_process_ms_per_step=one_diff_s * 1e3 / diff_steps,
-             gloo_host_ms=runs[0]["collective_ms"], card=smi)
+             one_process_ms_per_step=one_diff_s * 1e3 / diff_steps, card=smi)
     report["diffusion_step_rel"] = par_trajectory(
         "space (1, 2) 256² diffusion step", [two[0][7]["loss"]], [one_diff_mem["loss"]], 1e-4)
     report["diffusion_step_grads_one_process_noise"] = held_leaves(

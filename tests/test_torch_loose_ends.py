@@ -229,6 +229,7 @@ def test_train_profile_dir_traces_the_second_epoch(hooks, tmp_path):
     with open(prof / "trace_epoch2.json") as fh:
         trace = json.load(fh)
     assert any("conv" in ev.get("name", "") for ev in trace["traceEvents"])
+    assert any(ev.get("name") == "ast:train.step" for ev in trace["traceEvents"])
     with open(tmp_path / "m" / "A" / "cycle" / "metrics.jsonl") as fh:
         events = [json.loads(line) for line in fh]
     written = [e for e in events if e["event"] == "profile_written"]
