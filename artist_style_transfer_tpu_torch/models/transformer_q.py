@@ -17,6 +17,13 @@ each int8 conv with static per-tensor scales from :func:`calibrate_transformer`;
 the stream between blocks is real-unit bf16, so the residual adds are
 unaffected.
 
+Each instance norm of ``forward`` is one fused op, :func:`in_act_q8`: the
+accumulator -> IN (+ReLU) -> bf16 (+ the residual) -> the next conv's int8 codes,
+with the bf16 stream kept only where a residual add or the output conv reads it. On
+CUDA it is PyTorch's two means and two hand-written kernels (:mod:`ops.cuda.in_q8_kernel`);
+on the CPU its plain version, :func:`in_act_q8_plain`, the same PyTorch ops as
+``_in_act``, the residual add and ``quant_i8`` composed. Both give the same bits.
+
 Weights: OIHW, the transpose convs' stored flipped and transposed to the
 conv form (``w.flip(2, 3).transpose(0, 1)``), which JAX stores as flipped
 HWIO; the per-out-channel absmax runs over the same values, so the codes are
@@ -29,7 +36,8 @@ halo rows are fetched before each conv and quantized with the same static scale,
 so every rank's int8 codes are the single-device codes of its rows; a reflect
 conv runs on K2 with its W padding done before the quantize and no H padding, a
 transpose conv on its band plus halo with the single-device pads, cropped; the
-instance-norm statistics are the whole image's. ``forward`` is untouched by it.
+instance-norm statistics are the whole image's. ``forward_rows`` keeps the plain
+``_in_act``: its statistics need an all-reduce between the two passes.
 """
 
 from __future__ import annotations
@@ -46,7 +54,12 @@ from artist_style_transfer_tpu_torch.models.transformer import (
 )
 from artist_style_transfer_tpu_torch.ops.norm import INSTANCE_NORM_EPS
 from artist_style_transfer_tpu_torch.ops.pad import reflect_pad_hw
-from artist_style_transfer_tpu_torch.ops.qconv import conv_i8, quant_i8, quant_weight
+from artist_style_transfer_tpu_torch.ops.qconv import (
+    conv_i8,
+    quant_i8,
+    quant_i8_inv,
+    quant_weight,
+)
 from artist_style_transfer_tpu_torch.parallel.spatial import (
     RowBands,
     conv_rows,
@@ -96,6 +109,33 @@ def _in_act(y_acc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(_REAL_DTYPE)
 
 
+def in_act_q8_plain(acc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, relu: bool,
+                    residual: torch.Tensor | None = None, inv_s: torch.Tensor | None = None,
+                    stream: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The plain version of the fused instance norm: :func:`_in_act`, the ``residual``
+    added in bf16, and the int8 codes ``quant_i8(y, s)`` of the bf16 result, from
+    ``inv_s`` = ``1.0 / s.float()``. Returns ``(the bf16 stream if stream else None, the
+    codes if inv_s is given else None)``."""
+    y = _in_act(acc, gamma, beta, relu)
+    if residual is not None:
+        y = y + residual
+    return (y if stream else None), (None if inv_s is None else quant_i8_inv(y, inv_s))
+
+
+def in_act_q8(acc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, relu: bool,
+              residual: torch.Tensor | None = None, inv_s: torch.Tensor | None = None,
+              stream: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The fused instance norm of :func:`in_act_q8_plain`: a CUDA accumulator goes to the
+    hand-written kernel (:func:`ops.cuda.in_q8_kernel.in_q8_cuda`, which takes C a
+    multiple of 8 in ``channels_last`` and raises otherwise), a CPU one to the plain
+    version, bit for bit the same. Nothing falls back from one to the other."""
+    if acc.is_cuda:
+        from artist_style_transfer_tpu_torch.ops.cuda.in_q8_kernel import in_q8_cuda
+
+        return in_q8_cuda(acc, gamma, beta, relu, residual, inv_s, stream)
+    return in_act_q8_plain(acc, gamma, beta, relu, residual, inv_s, stream)
+
+
 def _in_relu_bf16(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   rows: RowBands | None = None) -> torch.Tensor:
     """One-pass f32-statistics IN + ReLU on a real-unit activation -> bf16."""
@@ -120,7 +160,8 @@ def _reflect_conv_bf16_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 class QuantConv(nn.Module):
     """One int8 conv feeding an instance norm: int8 weights, f32 gamma and beta, and the
-    static scale ``sin`` of its input."""
+    static scale ``sin`` of its input, with its reciprocal ``inv_s`` (``quant_i8``'s,
+    taken once; not in the state dict)."""
 
     def __init__(self, wq: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  sin: torch.Tensor, geometry: tuple):
@@ -129,12 +170,19 @@ class QuantConv(nn.Module):
         self.register_buffer("gamma", _buffer(gamma, torch.float32))
         self.register_buffer("beta", _buffer(beta, torch.float32))
         self.register_buffer("sin", _buffer(sin, torch.float32).reshape(()))
+        self.register_buffer("inv_s", 1.0 / self.sin, persistent=False)
         self.stride, self.padding, self.dilation, self.pad_mode = geometry
 
-    def forward(self, x: torch.Tensor, accum: torch.dtype, relu: bool) -> torch.Tensor:
-        y = conv_i8(quant_i8(x, self.sin), self.wq, self.stride, self.padding,
-                    self.dilation, self.pad_mode, out=accum)
-        return _in_act(y, self.gamma, self.beta, relu)
+    def forward(self, xq: torch.Tensor, accum: torch.dtype, relu: bool,
+                residual: torch.Tensor | None = None, inv_s: torch.Tensor | None = None,
+                stream: bool = False) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """The int8 conv of the codes ``xq`` and its fused instance norm
+        (:func:`in_act_q8`): the bf16 stream where ``stream``, the next conv's codes
+        where its ``inv_s`` is given."""
+        y = conv_i8(xq, self.wq, self.stride, self.padding, self.dilation, self.pad_mode,
+                    out=accum)
+        return in_act_q8(y, self.gamma, self.beta, relu, residual=residual, inv_s=inv_s,
+                         stream=stream)
 
     def conv_rows(self, x: torch.Tensor, rows: RowBands,
                   accum: torch.dtype) -> tuple[torch.Tensor, RowBands]:
@@ -183,6 +231,9 @@ class QuantizedTransformerNet(nn.Module):
                              f"convs; got {len(encoder)}, {len(residual)} and {len(decoder)}")
         for name in ("w", "b", "gamma", "beta"):
             self.register_buffer(f"stem_{name}", _buffer(stem[name], _REAL_DTYPE))
+        for name in ("gamma", "beta"):  # the stem's IN reads them in f32 (not in the state dict)
+            self.register_buffer(f"stem_{name}_f32", getattr(self, f"stem_{name}").float(),
+                                 persistent=False)
         self.register_buffer("out_w", _buffer(output["w"], _REAL_DTYPE))
         self.register_buffer("out_b", _buffer(output["b"], _REAL_DTYPE))
 
@@ -204,15 +255,21 @@ class QuantizedTransformerNet(nn.Module):
         if accum not in _ACCUMS:
             raise ValueError(f"accum must be torch.int32 or torch.bfloat16, got {accum}")
         x = x_nhwc.to(_REAL_DTYPE).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        xr = _in_relu_bf16(_reflect_conv_bf16(x, self.stem_w, self.stem_b),
-                           self.stem_gamma, self.stem_beta)
-        for layer in self.encoder:
-            xr = layer(xr, accum, relu=True)
+        steps = [(layer, True, False) for layer in self.encoder]  # (conv, relu, adds xr)
         for block in self.residual:
-            h = block["conv1"](xr, accum, relu=True)
-            xr = block["conv2"](h, accum, relu=False) + xr
-        for layer in self.decoder:
-            xr = layer(xr, accum, relu=True)
+            steps += [(block["conv1"], True, False), (block["conv2"], False, True)]
+        steps += [(layer, True, False) for layer in self.decoder]
+        _, q = in_act_q8(_reflect_conv_bf16(x, self.stem_w, self.stem_b), self.stem_gamma_f32,
+                         self.stem_beta_f32, True, inv_s=steps[0][0].inv_s, stream=False)
+        xr = None
+        for i, (layer, relu, adds) in enumerate(steps):
+            last = i + 1 == len(steps)
+            # The bf16 stream is kept where the next residual add or the output conv reads it.
+            keep = last or (i + 2 < len(steps) and steps[i + 2][2])
+            y, q = layer(q, accum, relu, residual=xr if adds else None,
+                         inv_s=None if last else steps[i + 1][0].inv_s, stream=keep)
+            if keep:
+                xr = y
         return _reflect_conv_bf16(xr, self.out_w, self.out_b).permute(0, 2, 3, 1)
 
     def forward_rows(self, x_nhwc: torch.Tensor, rows: RowBands,

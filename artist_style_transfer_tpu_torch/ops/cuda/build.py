@@ -114,6 +114,10 @@ def library() -> ctypes.CDLL:
             lib.ast_gram.restype = i
             lib.ast_qconv.argtypes = [p] * 10 + [i, p]
             lib.ast_qconv.restype = i
+            lib.ast_in_q8_square.argtypes = [p, p, i, ctypes.c_longlong, p]
+            lib.ast_in_q8_square.restype = i
+            lib.ast_in_q8_apply.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, p]
+            lib.ast_in_q8_apply.restype = i
             lib.ast_error_string.argtypes = [i]
             lib.ast_error_string.restype = ctypes.c_char_p
             _lib = lib

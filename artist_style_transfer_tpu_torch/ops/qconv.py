@@ -82,7 +82,13 @@ def quant_i8(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """round(t / scale) clipped to [-127, 127] as int8, computed as JAX does:
     ``round(t.float() * (1 / scale))`` with an f32 scalar ``scale``. Keeps t's
     memory format."""
-    q = torch.round(t.float() * (1.0 / scale.float()))
+    return quant_i8_inv(t, 1.0 / scale.float())
+
+
+def quant_i8_inv(t: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
+    """:func:`quant_i8` with the reciprocal of its scale already taken: ``inv_scale`` is
+    ``1.0 / scale.float()``, an f32 scalar."""
+    q = torch.round(t.float() * inv_scale)
     return q.clamp_(-127.0, 127.0).to(torch.int8)
 
 

@@ -241,7 +241,15 @@ must finish inside 1200 s, and machines differ by up to 1.5x in host-bound time:
     generated images, 80 epochs, base 32, cosine) for its 12 sampler configurations,
     with the orderings of ``tests/test_diffusion.py`` held at 3 decimals; K1 and K2
     0 launches on every one of these paths;
-20. timing: each phase's seconds on the host clock (phases 15-17 their work in this
+20. in_q8: the fused instance norm of the int8 TransformerNet (``csrc/in_q8.cu``) on the
+    real accumulators of ``forward`` at 1024x1024, B = 8 and 4, bf16 and int32
+    accumulators (each distinct call of a forward once): its bf16 stream and int8 codes
+    bit-equal to the plain op's on the card and between two runs, and the whole
+    forward's output bit-equal to the plain forward's; a CUDA accumulator with C = 12
+    refused; 17 fused calls and 16 K2 launches a ``stylize_int8`` batch of 8; its time
+    warm (events) and, for the bf16 forwards, the call's and each kernel's cold device
+    time (profiler), beside the plain op's and the bytes bounds (read once; as moved);
+21. timing: each phase's seconds on the host clock (phases 15-17 their work in this
     process, phase 16's 'classifier' and int8 runs under ``space_train_more`` and its
     K1 checks under ``space_train_k1``; ``ranks_2`` and ``ranks_4`` the one launch of 2
     and of 4 gloo ranks on cuda:0 that runs their rank jobs: one start-up and warm-up a
@@ -328,6 +336,13 @@ INT8_CLI_IMAGES = 4
 # Launches of K2: 16 int8 convs a TransformerNet forward, 52 a ResNet-50 forward.
 QCONV_TRANSFORMER = 16
 QCONV_RESNET = 52
+# The fused instance norm (csrc/in_q8.cu): the int8 TransformerNet's 17 instance norms (the
+# stem's and the 16 int8 convs') a forward, one call each, checked at the benchmark's
+# stylize and eval batches at 1024x1024.
+IN_Q8_SOURCE = "artist_style_transfer_tpu_torch/csrc/in_q8.cu"
+IN_Q8_FORWARD = 17
+IN_Q8_SIZE = 1024
+IN_Q8_BATCHES = (8, 4)
 # The int8 training phase: the train phase's 'cycle' shapes in bf16. Int8 convs of a
 # step, each launching K2 twice (forward and STE data gradient): the VGG16's conv3_1..
 # conv4_3 under quantize_loss "deep", the QAT TransformerNet's 128-channel convs under
@@ -1872,6 +1887,168 @@ def phase_int8(peaks: dict, smi: str) -> dict:
         "eval_int8": eval_launches, "stylize_int8": stylize_launches,
         "eval_cli_int8": cli["k2_launches"]},
         "k1_launches": {"stylize_int8": stylize_k1, "eval_int8": eval_k1}}
+
+
+def record_in_q8_calls(run) -> list[tuple]:
+    """Run ``run`` and return the arguments of every fused instance-norm call it made, in
+    order (the tensors themselves: the main path's real accumulators)."""
+    from artist_style_transfer_tpu_torch.ops.cuda import in_q8_kernel
+
+    calls, real = [], in_q8_kernel.in_q8_cuda
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    in_q8_kernel.in_q8_cuda = recording
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        in_q8_kernel.in_q8_cuda = real
+    return calls
+
+
+def in_q8_key(args: tuple) -> tuple:
+    acc, _, _, relu, residual, inv_s, stream = args
+    return (tuple(acc.shape), str(acc.dtype).split(".")[-1], relu, residual is not None,
+            inv_s is not None, stream)
+
+
+def in_q8_bytes(args: tuple) -> tuple[int, int]:
+    """(the bytes read once and written once, the bytes the call moves) of a fused call:
+    the accumulator, the residual, the bf16 stream and the int8 codes; the call also reads
+    the accumulator for the mean and for the squares, and writes and reads the f32
+    squares."""
+    acc, _, _, _, residual, inv_s, stream = args
+    once = acc.numel() * acc.element_size() \
+        + (residual.numel() * 2 if residual is not None else 0) \
+        + (acc.numel() * 2 if stream else 0) + (acc.numel() if inv_s is not None else 0)
+    return once, once + 2 * acc.numel() * acc.element_size() + 8 * acc.numel()
+
+
+def check_in_q8_call(args: tuple, peaks: dict, device_times: bool) -> dict:
+    """One fused instance-norm call against the plain op on the card, bit for bit."""
+    from artist_style_transfer_tpu_torch.models.transformer_q import in_act_q8_plain
+    from artist_style_transfer_tpu_torch.ops.cuda import in_q8_kernel
+
+    acc, gamma, beta, relu, residual, inv_s, stream = args
+
+    def bits(t):  # NHWC in memory: a view of its bytes
+        return t.permute(0, 2, 3, 1).view(torch.uint8)
+
+    first, again = in_q8_kernel.in_q8_cuda(*args), in_q8_kernel.in_q8_cuda(*args)
+    repeats = all(a is None or torch.equal(bits(a), bits(b)) for a, b in zip(first, again))
+    del first, again
+    stream_k, codes_k = in_q8_kernel.in_q8_cuda(acc, gamma, beta, relu, residual, inv_s, True)
+    stream_p, codes_p = in_act_q8_plain(acc, gamma, beta, relu, residual, inv_s, True)
+    out = {"key": in_q8_key(args), "repeat_bit_equal": repeats,
+           "stream_mismatches": int((bits(stream_k) != bits(stream_p)).sum()),
+           "codes_mismatches": 0 if codes_k is None else int((codes_k != codes_p).sum()),
+           "mean_order_equal": torch.equal(acc.mean(dim=(2, 3), dtype=torch.float32),
+                                           acc.float().mean(dim=(2, 3)))}
+    del stream_k, codes_k, stream_p, codes_p
+    # Times: warm by events (the whole call: PyTorch's two means, the squares, the apply);
+    # cold device time by the profiler; the bounds from the bytes at the HBM peak.
+    once, moved = in_q8_bytes(args)
+    out.update(ms=time_ms(lambda: in_q8_kernel.in_q8_cuda(*args), iters=10),
+               plain_ms=time_ms(lambda: in_act_q8_plain(*args), iters=5, warmup=1),
+               bound_ms=once / peaks["hbm"] * 1e3, moved_bound_ms=moved / peaks["hbm"] * 1e3)
+    if device_times:
+        out.update({f"{k}_device_ms": device_ms(lambda: in_q8_kernel.in_q8_cuda(*args), name,
+                                                iters=10)
+                    for k, name in (("call", ""), ("square", "in_q8_square_kernel"),
+                                    ("apply", "in_q8_apply_kernel"))})
+    return out
+
+
+def phase_in_q8(peaks: dict, smi: str) -> dict:
+    """The fused instance norm (``csrc/in_q8.cu``) against the plain op, bit for bit, on
+    the real accumulators of the int8 TransformerNet's forward at 1024x1024 (B = 8 and 4,
+    int32 and bf16 accumulators) and on the forward's output, its times beside the plain
+    op's and its bounds, and its calls a ``stylize_int8`` batch; returns the kernels
+    line's numbers."""
+    from artist_style_transfer_tpu_torch.infer.stylize import load_transfer_params, stylize_int8
+    from artist_style_transfer_tpu_torch.models import transformer_q as tq
+    from artist_style_transfer_tpu_torch.models.transformer_q import (
+        in_act_q8,
+        quantize_transformer,
+    )
+    from artist_style_transfer_tpu_torch.ops.cuda import in_q8_kernel, qconv_kernel
+
+    model = load_transfer_params(os.path.join(GOLDENS, "golden_transfer.pth"), device="cuda")
+    calib = (np.random.default_rng(7).random((2, 128, 128, 3)) * 255).astype(np.float32)
+    qmodel = quantize_transformer(model, calib)
+    images = np.stack(eval_data()[:max(IN_Q8_BATCHES)])
+
+    # No CPU form, no fallback: a CUDA accumulator the kernel cannot take raises.
+    bad = torch.zeros((1, 12, 8, 8), dtype=torch.bfloat16, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    try:
+        in_act_q8(bad, torch.ones(12, device="cuda"), torch.zeros(12, device="cuda"), True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "multiple of 8" in refused,
+            f"in_q8: the kernel took C = 12: {refused}")
+
+    # One stylize_int8 batch at the stylize cell's shape: 17 calls, 16 K2 launches.
+    batch = images[:IN_Q8_BATCHES[0]]
+    stylize_int8(qmodel, batch, device="cuda")
+    torch.cuda.synchronize()
+    in_q8_kernel.LAUNCHES = qconv_kernel.LAUNCHES = 0
+    stylize_int8(qmodel, batch, device="cuda")
+    torch.cuda.synchronize()
+    launches, k2 = in_q8_kernel.LAUNCHES, qconv_kernel.LAUNCHES
+    require(launches == IN_Q8_FORWARD and k2 == QCONV_TRANSFORMER,
+            f"in_q8: a stylize_int8 batch made {launches} fused calls and {k2} K2 launches")
+
+    paths, lines, forwards = {}, [], {}
+    for n in IN_Q8_BATCHES:
+        x = torch.as_tensor(images[:n], device="cuda")
+        for accum in (torch.bfloat16, torch.int32):
+            path = f"forward_{IN_Q8_SIZE}_b{n}_{str(accum).split('.')[-1]}"
+            with torch.inference_mode():
+                calls = record_in_q8_calls(lambda: qmodel(x, accum=accum))
+                fused = qmodel(x, accum=accum)
+                tq.in_act_q8 = tq.in_act_q8_plain
+                try:
+                    plain = qmodel(x, accum=accum)
+                finally:
+                    tq.in_act_q8 = in_act_q8
+                forwards[path] = torch.equal(fused.view(torch.int16), plain.view(torch.int16))
+                del fused, plain
+            require(len(calls) == IN_Q8_FORWARD, f"in_q8: {len(calls)} calls in {path}")
+            counts: dict[tuple, int] = {}
+            for args in calls:
+                counts[in_q8_key(args)] = counts.get(in_q8_key(args), 0) + 1
+            checked = {}
+            for args in calls:
+                key = in_q8_key(args)
+                if key in checked:
+                    continue
+                with torch.inference_mode():
+                    checked[key] = check_in_q8_call(args, peaks, accum == torch.bfloat16)
+                emit("in_q8", path=path, calls=counts[key], card=smi, **checked[key])
+                lines.append(checked[key])
+            del calls
+            keys = ["ms", "plain_ms", "bound_ms", "moved_bound_ms"] + (
+                ["call_device_ms", "square_device_ms", "apply_device_ms"]
+                if accum == torch.bfloat16 else [])
+            paths[path] = {k: sum(counts[key] * r[k] for key, r in checked.items()) for k in keys}
+            emit("in_q8_forward", path=path, calls=IN_Q8_FORWARD, card=smi,
+                 output_bit_equal_to_plain=forwards[path], **paths[path])
+        del x
+    torch.cuda.empty_cache()
+    worst = {"stream_mismatches": sum(r["stream_mismatches"] for r in lines),
+             "codes_mismatches": sum(r["codes_mismatches"] for r in lines)}
+    require(all(r["repeat_bit_equal"] for r in lines), "in_q8: two runs differ")
+    require(worst["stream_mismatches"] == 0 and worst["codes_mismatches"] == 0,
+            f"in_q8: the fused op differs from the plain op on the card: {worst}")
+    require(all(forwards.values()), f"in_q8: the forward differs from the plain one: {forwards}")
+    return {"paths": paths, "worst": {**worst, "forward_bit_equal": forwards},
+            "launches": {"stylize_int8": launches},
+            "refused": refused}
 
 
 def counted_train(mode: str, artist: str, tmp: str, **kw) -> dict:
@@ -4593,7 +4770,7 @@ def ok_line() -> str:
 
 PHASES = ("gram", "stylize", "gatys", "train", "classifier", "eval", "train_classifier", "data",
           "display", "int8", "int8_train", "train_artist_classifier", "serve", "parallel",
-          "space_train", "space_more", "kernel_rows", "diffusion")
+          "space_train", "space_more", "kernel_rows", "diffusion", "in_q8")
 
 
 def main(argv=None) -> int:
@@ -4673,6 +4850,7 @@ def main(argv=None) -> int:
     rows = run("kernel_rows", phase_kernel_rows, peaks, smi)
     diff = run("diffusion", phase_diffusion, peaks, smi) or {"k1_launches": {}}
     launches.update(diff["k1_launches"])
+    in_q8 = run("in_q8", phase_in_q8, peaks, smi)
     if args.profile:
         run("profile", phase_profile)
     # Each phase's seconds on the host clock, build included: where a cut of depth pays.
@@ -4837,6 +5015,37 @@ def main(argv=None) -> int:
         "paths": paths,
         "dgrad": dgrad,
         "kernel_rows": rows["k2"],
+        "peaks": variant,
+    }, {
+        "name": "in_q8",
+        "route": "cuda",
+        "source": IN_Q8_SOURCE,
+        "replaces": "none: the JAX package's _in_act and _quant_act are XLA fusions",
+        "launches": in_q8["launches"]["stylize_int8"],
+        "launches_by_path": in_q8["launches"],
+        **in_q8["worst"],
+        **{k: in_q8["paths"][f"forward_{IN_Q8_SIZE}_b{IN_Q8_BATCHES[0]}_bfloat16"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "moved_bound_ms", "square_device_ms",
+                     "apply_device_ms")},
+        "device_ms": in_q8["paths"][f"forward_{IN_Q8_SIZE}_b{IN_Q8_BATCHES[0]}_bfloat16"][
+            "call_device_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "launches_are": "launches: fused calls (each PyTorch's two means, the squares and the "
+                        "apply) of one stylize_int8 "
+                        f"batch of {IN_Q8_BATCHES[0]} at {IN_Q8_SIZE}x{IN_Q8_SIZE}, counter "
+                        "zeroed just before: the stem's and the 16 int8 convs' instance norms",
+        "times_are": f"sums over the {IN_Q8_FORWARD} calls of one int8 TransformerNet forward "
+                     f"at {IN_Q8_SIZE}x{IN_Q8_SIZE}, B={IN_Q8_BATCHES[0]}, bf16 accumulators; "
+                     "ms warm by CUDA events, device_ms the whole call's cold-L2 device time "
+                     "by the profiler (PyTorch's means included), square_device_ms and "
+                     "apply_device_ms the two kernels', plain_ms the plain op's, bound_ms the "
+                     "bytes read once and written once at the HBM peak, moved_bound_ms the "
+                     "bytes the call moves (the accumulator read three times, the f32 "
+                     "squares written and read); no PyTorch call computes the fused op; "
+                     "paths holds each forward's sums (B = 8 and 4, bf16 and int32 "
+                     "accumulators)",
+        "paths": in_q8["paths"],
         "peaks": variant,
     }]}), flush=True)
     print(ok_line(), flush=True)

@@ -279,7 +279,7 @@ def test_build_needs_nvcc():
     with pytest.raises(RuntimeError, match="nvcc"):
         tbuild.build()
     assert len(tbuild.source_hash()) == 64
-    assert [p.name for p in tbuild._sources()] == ["gram.cu", "qconv.cu"]
+    assert [p.name for p in tbuild._sources()] == ["gram.cu", "in_q8.cu", "qconv.cu"]
 
 
 def test_precision_sets_tf32_flags():
@@ -326,13 +326,14 @@ def test_build_runs_one_nvcc_a_source_then_links(tmp_path, monkeypatch):
         tbuild.source_hash()
     lines = calls.read_text().splitlines()
     compiles = [ln for ln in lines if " -c " in ln]
-    assert len(compiles) == len(tbuild._sources()) == 2
-    # The compiles run at once, so they may log in either order.
-    assert sorted(ln.split()[-1].split("/")[-1] for ln in compiles) == ["gram.cu", "qconv.cu"]
-    assert lines[-1].count(".o") == 2 and "-shared" in lines[-1]
+    assert len(compiles) == len(tbuild._sources()) == 3
+    # The compiles run at once, so they may log in any order.
+    assert sorted(ln.split()[-1].split("/")[-1] for ln in compiles) == [
+        "gram.cu", "in_q8.cu", "qconv.cu"]
+    assert lines[-1].count(".o") == 3 and "-shared" in lines[-1]
     assert tbuild.last_build["built"] and "ptxas info" in tbuild.last_build["log"]
     assert tbuild.build() == lib and not tbuild.last_build["built"]  # up to date: no nvcc
-    assert len(calls.read_text().splitlines()) == 3
+    assert len(calls.read_text().splitlines()) == 4
     monkeypatch.setattr(tbuild, "source_hash", lambda: "changed")
     monkeypatch.setattr(tbuild, "NVCC_FLAGS", (*tbuild.NVCC_FLAGS, "-Dbroken"))
     with pytest.raises(RuntimeError, match="nvcc failed"):
